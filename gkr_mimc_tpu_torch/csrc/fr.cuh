@@ -39,6 +39,16 @@
 // -p^-1 mod 2^32
 #define FR_NP0 0xefffffffu
 
+// R mod p: the Montgomery image of 1 (canonical, as fields/fr.py one())
+#define FR_ONE0 0x4ffffffbu
+#define FR_ONE1 0xac96341cu
+#define FR_ONE2 0x9f60cd29u
+#define FR_ONE3 0x36fc7695u
+#define FR_ONE4 0x7879462eu
+#define FR_ONE5 0x666ea36fu
+#define FR_ONE6 0x9a07df2fu
+#define FR_ONE7 0x0e0a77c1u
+
 namespace fr {
 
 constexpr int L = 8;
@@ -64,6 +74,10 @@ __device__ __forceinline__ Fe zero() {
 #pragma unroll
   for (int l = 0; l < L; ++l) a.v[l] = 0u;
   return a;
+}
+
+__device__ __forceinline__ Fe one() {
+  return Fe{{FR_ONE0, FR_ONE1, FR_ONE2, FR_ONE3, FR_ONE4, FR_ONE5, FR_ONE6, FR_ONE7}};
 }
 
 // s - c if s >= c, else s (s, c < 2^256).

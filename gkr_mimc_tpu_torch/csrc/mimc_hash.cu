@@ -16,12 +16,11 @@
 // is no cap on K.
 #include <cuda_runtime.h>
 
-#include "fr.cuh"
+#include "mimc.cuh"
 
 namespace {
 
 constexpr int kThreads = 64;
-constexpr int kRounds = 91;
 
 __global__ void __launch_bounds__(kThreads)
     mimc_hash_kernel(const int32_t* msgs, const int32_t* arks, int32_t* out, int64_t k,
@@ -31,13 +30,7 @@ __global__ void __launch_bounds__(kThreads)
   fr::Fe state = fr::zero();
   for (int64_t w = 0; w < k; ++w) {
     // msgs (8, K, G): limb l of word w in lane g at l*K*G + w*G + g
-    const fr::Fe word = fr::load(msgs + w * g, k * g, lane);
-    fr::Fe res = word;
-    for (int r = 0; r < kRounds; ++r) {
-      const fr::Fe ark = fr::load(arks + r * fr::L, 1, 0);
-      res = fr::pow7(fr::add(fr::add(res, state), ark));
-    }
-    state = fr::add(fr::add(res, fr::add(state, state)), word);
+    state = mimc::update(state, fr::load(msgs + w * g, k * g, lane), arks);
   }
   fr::store(out, g, lane, fr::canonical(state));
 }

@@ -24,9 +24,14 @@ class GKRProof:
     """Indexed [layer]; entries are None for input layers.
 
     sumcheck_proofs[l]: SumcheckProof of layer l
-    claims[l]:  (J_l, 8) Montgomery rows, J_l = len(out) claims ((0, 8) for
-                the output layer: the verifier computes its claim itself)
-    qprimes[l]: (J_l, bn, 8) Montgomery rows
+    claims[l]:  (J_l[, G], 8) Montgomery rows, J_l = len(out) claims
+                ((0[, G], 8) for the output layer: the verifier computes its
+                claim itself)
+    qprimes[l]: (J_l, bn[, G], 8) Montgomery rows
+
+    A grouped proof (G instances in one walk) carries the G axis just
+    before the limb axis of every artifact; ``gkr.verifier.slice_group``
+    takes one instance out.
     """
 
     sumcheck_proofs: list[Optional[SumcheckProof]]
@@ -37,7 +42,11 @@ class GKRProof:
 def prove(circuit: Circuit, assignment: list, qprime: torch.Tensor,
           tail_bits: int = sumcheck_prover.TAIL_BITS) -> GKRProof:
     """assignment: (8, N) tables, one per layer; qprime: (bn, 8) rows, the
-    initial evaluation point."""
+    initial evaluation point.
+
+    Grouped (G independent instances in one walk; the transcript hashes of
+    all lanes run in lockstep): assignment tables (8, G, N), qprime
+    (bn, G, 8) with one evaluation point per lane."""
     nlayers = len(circuit)
     claim_store = [[None] * len(l.out) for l in circuit]
     qprime_store = [[None] * len(l.out) for l in circuit]
@@ -46,7 +55,7 @@ def prove(circuit: Circuit, assignment: list, qprime: torch.Tensor,
     qprimes_out: list = [None] * nlayers
 
     qprimes_out[nlayers - 1] = qprime[None]
-    claims_out[nlayers - 1] = qprime.new_zeros((0, qprime.shape[-1]))
+    claims_out[nlayers - 1] = qprime.new_zeros((0,) + tuple(qprime.shape[1:]))
 
     for layer in range(nlayers - 1, -1, -1):
         if circuit.is_input_layer(layer):
@@ -55,10 +64,10 @@ def prove(circuit: Circuit, assignment: list, qprime: torch.Tensor,
             qprimes, claims = qprimes_out[layer], None
         else:
             qprimes = torch.stack(qprime_store[layer], dim=0)
-            claim_rows = torch.stack(claim_store[layer], dim=0)  # (J, 8)
+            claim_rows = torch.stack(claim_store[layer], dim=0)  # (J[, G], 8)
             qprimes_out[layer] = qprimes
             claims_out[layer] = claim_rows
-            claims = claim_rows.T.contiguous()  # (8, J)
+            claims = claim_rows.movedim(-1, 0).contiguous()  # (8, J[, G])
         xs = [assignment[j] for j in circuit[layer].in_]
         scp = sumcheck_prover.prove(xs, qprimes, claims, circuit[layer].gate, tail_bits)
         proofs[layer] = scp

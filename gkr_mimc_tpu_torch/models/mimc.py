@@ -16,6 +16,7 @@ import torch
 
 from ..circuits.circuit import Circuit, Layer
 from ..circuits.gates import CipherGate, IdentityGate
+from ..fields.bn254 import L
 from ..hashes.ark import ARKS_INT, arks_mont
 from ..ops import kernels as K
 
@@ -33,6 +34,8 @@ def mimc_circuit() -> Circuit:
 def assign_fused(block: torch.Tensor, state: torch.Tensor) -> list:
     """Witness tables [block, state, block copy, cipher 0..90], all
     resident: the 91 cipher tables come from one witness kernel launch
-    (views of one (91, 8, N) tensor)."""
-    wit = K.mimc_witness(block, state, arks_mont(MIMC_ROUNDS, block.device))
-    return [block, state, block] + list(wit.unbind(0))
+    (views of one (91, 8, N) tensor). Grouped block and state tables
+    (8, G, N) take one launch over the flattened G*N instances and give
+    (8, G, N) views."""
+    wit = K.mimc_witness(block.reshape(L, -1), state.reshape(L, -1), arks_mont(MIMC_ROUNDS, block.device))
+    return [block, state, block] + [w.view(block.shape) for w in wit.unbind(0)]

@@ -38,6 +38,7 @@ SIGNATURES = {
     "gkr_multi_eq": (_P, _P, _P, _I, _I, _I, _P),
     "gkr_gruen_acc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gkr_identity_acc": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "gkr_gruen_round": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
 }
 
 

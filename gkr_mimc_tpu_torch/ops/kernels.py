@@ -5,18 +5,19 @@ Every Pallas kernel that the reference's default path reaches has a
 hand-written CUDA counterpart in ``csrc/`` (compiled for sm_90a by
 ``ops/build.py``):
 
-==============  =====================  =========================================
-wrapper         CUDA source            replaces (gkr_mimc_tpu/ops/kernels.py)
-==============  =====================  =========================================
-mimc_witness    csrc/witness.cu        mimc_witness (:136)
-mimc_hash       csrc/mimc_hash.cu      mimc_hash_fs (:253), G = 1
-mimc_hash_g     csrc/mimc_hash.cu      mimc_hash_fs_g (:1321), G lanes
-fold            csrc/elementwise.cu    fold_tables_band (:935)
-suffix_step     csrc/elementwise.cu    suffix_step_band (:1000)
-multi_eq        csrc/elementwise.cu    multi_eq_accum (:1588)
-gruen_acc       csrc/round_acc.cu      cipher_gruen_acc (:740) + finish_gruen_acc
-identity_acc    csrc/round_acc.cu      identity_coeff_acc (:651) + finish_coeff_acc
-==============  =====================  =========================================
+==================  =====================  =========================================
+wrapper             CUDA source            replaces (gkr_mimc_tpu/ops/kernels.py)
+==================  =====================  =========================================
+mimc_witness        csrc/witness.cu        mimc_witness (:136)
+mimc_hash           csrc/mimc_hash.cu      mimc_hash_fs (:253), G = 1
+mimc_hash_g         csrc/mimc_hash.cu      mimc_hash_fs_g (:1321), G lanes
+fold                csrc/elementwise.cu    fold_tables_band (:935)
+suffix_step         csrc/elementwise.cu    suffix_step_band (:1000)
+multi_eq            csrc/elementwise.cu    multi_eq_accum (:1588)
+gruen_acc           csrc/round_acc.cu      cipher_gruen_acc (:740) + finish_gruen_acc
+identity_acc        csrc/round_acc.cu      identity_coeff_acc (:651) + finish_coeff_acc
+gruen_round_scalar  csrc/gruen_round.cu    gruen_round_scalar (:1446)
+==================  =====================  =========================================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its outputs with ``torch.empty``, launches on the
@@ -56,6 +57,7 @@ KERNELS = {
     "multi_eq": ("gkr_mimc_tpu_torch/csrc/elementwise.cu", "gkr_mimc_tpu/ops/kernels.py:1588"),
     "gruen_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu", "gkr_mimc_tpu/ops/kernels.py:740"),
     "identity_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu", "gkr_mimc_tpu/ops/kernels.py:651"),
+    "gruen_round_scalar": ("gkr_mimc_tpu_torch/csrc/gruen_round.cu", "gkr_mimc_tpu/ops/kernels.py:1446"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -368,6 +370,56 @@ def identity_acc_plain(eq, x, g):
     return fr.reduce_sum(terms, 2)
 
 
+# ---------------------------------------------------------------------------
+# Gruen round scalar stage
+# ---------------------------------------------------------------------------
+
+
+def gruen_round_scalar(qc: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, ck: torch.Tensor,
+                       qk: torch.Tensor):
+    """The scalar stage of a Gruen head round in G lanes: qc (8, 8, G) the
+    C(7,m)-scaled round sums Q_m; alpha = 1 - q_k, beta = 2 q_k - 1, ck,
+    q_k (8, G) -> (P (8, 9, G) with P_m = ck (alpha Q_m + beta Q_{m-1}),
+    r = MimcHash(P) (8, G) canonical, ck' = ck eq1(q_k, r) (8, G))."""
+    if qc.dim() != 3:
+        raise ValueError(f"gruen_round_scalar: shape {tuple(qc.shape)}, expected (8, 8, G)")
+    g = qc.shape[-1]
+    _expect("gruen_round_scalar", qc, (L, 8, g))
+    for t in (alpha, beta, ck, qk):
+        _expect("gruen_round_scalar", t, (L, g))
+    if _on_cpu("gruen_round_scalar", qc, alpha, beta, ck, qk):
+        return gruen_round_scalar_plain(qc, alpha, beta, ck, qk)
+    p, r, ck2 = _empty((L, 9, g), qc), _empty((L, g), qc), _empty((L, g), qc)
+    _launch("gruen_round_scalar", "gkr_gruen_round", qc.device, _ptr(qc), _ptr(alpha), _ptr(beta),
+            _ptr(ck), _ptr(qk), _ptr(arks_mont(MIMC_ROUNDS, qc.device)), _ptr(p), _ptr(r), _ptr(ck2), g)
+    return p, r, ck2
+
+
+def _gruen_combine(qc, alpha, beta, ck):
+    """Q (8, 8, G) -> P (8, 9, G): P_m = ck (alpha Q_m + beta Q_{m-1})."""
+    zero = fr.zeros((1, qc.shape[-1]), qc.device)
+    p = fr.add(
+        torch.cat([fr.mul(qc, alpha.unsqueeze(1)), zero], dim=1),
+        torch.cat([zero, fr.mul(qc, beta.unsqueeze(1))], dim=1),
+    )
+    return fr.mul(p, ck.unsqueeze(1))
+
+
+def _eq1_at(qk, r):
+    """eq1(q, r) = 1 - q - r + 2 q r."""
+    one = fr.one(qk.shape[1:], qk.device)
+    t = fr.mul(qk, r)
+    return fr.add(fr.sub(fr.sub(one, qk), r), fr.add(t, t))
+
+
+def gruen_round_scalar_plain(qc, alpha, beta, ck, qk):
+    """The unfused stage: the combine, the transcript hash of each lane,
+    then eq1 (the reference's GKR_GRUEN_FUSE=0 path)."""
+    p = _gruen_combine(qc, alpha, beta, ck)
+    r = mimc_hash_g_plain(p)
+    return p, r, fr.mul(ck, _eq1_at(qk, r))
+
+
 PLAIN = {
     "mimc_witness": mimc_witness_plain,
     "mimc_hash": mimc_hash_plain,
@@ -377,4 +429,5 @@ PLAIN = {
     "multi_eq": multi_eq_plain,
     "gruen_acc": gruen_acc_plain,
     "identity_acc": identity_acc_plain,
+    "gruen_round_scalar": gruen_round_scalar_plain,
 }

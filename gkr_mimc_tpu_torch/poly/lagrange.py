@@ -61,7 +61,8 @@ def interpolate_on_range_device(values: torch.Tensor) -> torch.Tensor:
 
 
 def eval_univariate_device(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Horner on the device: coeffs (8, K), x (8,) -> (8,)."""
+    """Horner on the device: coeffs (8, K[, *B]), x (8[, *B]) -> (8[, *B]);
+    a grouped batch B = (G,) evaluates each lane at its own x."""
     res = coeffs[:, -1]
     for j in range(coeffs.shape[1] - 2, -1, -1):
         res = fr.add(fr.mul(res, x), coeffs[:, j])

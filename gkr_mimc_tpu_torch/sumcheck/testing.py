@@ -30,8 +30,9 @@ def evaluation_scalar(gate, qprimes_int, claims_int, xs_int) -> int:
     return res
 
 
-def initialize_cipher_gate_instance(bn: int, device=None):
-    """-> (xs tables on `device`, claims_int, qprimes_int, gate)."""
+def initialize_cipher_gate_instance(bn: int, device="cuda"):
+    """-> (xs tables on `device`, the card by default; claims_int,
+    qprimes_int, gate)."""
     q = random_fr_array(bn)
     gate = CipherGate(145646)
     vals = list(range(1 << bn))
@@ -40,8 +41,9 @@ def initialize_cipher_gate_instance(bn: int, device=None):
     return xs, [claim], [q], gate
 
 
-def initialize_multi_instance(bn: int, n_instance: int, device=None):
-    """-> (xs tables on `device`, claims_int, qprimes_int, gate)."""
+def initialize_multi_instance(bn: int, n_instance: int, device="cuda"):
+    """-> (xs tables on `device`, the card by default; claims_int,
+    qprimes_int, gate)."""
     gate = IdentityGate()
     qs = [[(i * j + i) for j in range(bn)] for i in range(n_instance)]
     vals = list(range(1 << bn))
@@ -50,13 +52,15 @@ def initialize_multi_instance(bn: int, n_instance: int, device=None):
     return xs, claims, qs, gate
 
 
-def to_device_qprimes(qprimes_int, device=None) -> torch.Tensor:
-    """J lists of bn ints -> (J, bn, 8) Montgomery rows."""
+def to_device_qprimes(qprimes_int, device="cuda") -> torch.Tensor:
+    """J lists of bn ints -> (J, bn, 8) Montgomery rows (on the card by
+    default)."""
     return ints_to_rows(qprimes_int, device)
 
 
-def to_device_claims(claims_int, device=None):
-    """J ints -> (8, J) Montgomery tensor (None if empty)."""
+def to_device_claims(claims_int, device="cuda"):
+    """J ints -> (8, J) Montgomery tensor (None if empty; on the card by
+    default)."""
     if not claims_int:
         return None
     return fr.encode_mont_ints(claims_int, device)

@@ -46,6 +46,8 @@ def _cases(rng, dev):
         "gruen_acc": [(r(1), r(2), r(2), r(1)), (r(3 * 512), r(3 * 1024), r(3 * 1024), r(3)),
                       (r(1 << 15), r(1 << 16), r(1 << 16), r(1))],
         "identity_acc": [(r(2), r(2), 1), (r(3 * 1024), r(3 * 1024), 3), (r(1 << 16), r(1 << 16), 1)],
+        "gruen_round_scalar": [(r(8, 1), r(1), r(1), r(1), r(1)), (r(8, 3), r(3), r(3), r(3), r(3)),
+                               (r(8, 70), r(70), r(70), r(70), r(70))],
     }
 
 
@@ -58,6 +60,7 @@ def test_kernel_matches_plain_twin(cuda_device, name):
         want = K.PLAIN[name](*args)
         torch.cuda.synchronize()
         assert K.LAUNCHES[name] == before + 1
-        got = got if isinstance(got, list) else [got]
-        want = want if isinstance(want, list) else [want]
+        got = list(got) if isinstance(got, (list, tuple)) else [got]
+        want = list(want) if isinstance(want, (list, tuple)) else [want]
+        assert len(got) == len(want)
         assert all(torch.equal(a, b) for a, b in zip(got, want))

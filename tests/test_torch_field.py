@@ -108,9 +108,30 @@ def test_layout_converters_round_trip():
 def test_random_inputs_match_jax():
     assert common.random_fr_array(50) == jcommon.random_fr_array(50)
     for size, offset in [(64, 0), (40, (1 << 32) - 40), (33, 70000)]:
-        got = common.random_fr_device(size, offset)
+        got = common.random_fr_device(size, offset, device="cpu")
         want = jcommon.random_fr_device(size, offset)
         assert torch.equal(got, from_jax_rows(np.asarray(want)))
+
+
+def test_entry_points_default_to_the_card():
+    """Naming no device puts the tensors on the card; with no card the
+    call raises (no fallback to the CPU)."""
+    from gkr_mimc_tpu_torch.sumcheck import testing
+
+    calls = [
+        lambda: common.random_fr_device(4),
+        lambda: common.grouped_inputs(1, 2)[0],
+        lambda: testing.initialize_cipher_gate_instance(1)[0][0],
+        lambda: testing.initialize_multi_instance(1, 2)[0][0],
+        lambda: testing.to_device_qprimes([[1, 2]]),
+        lambda: testing.to_device_claims([3]),
+    ]
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()
 
 
 def test_package_imports_without_jax():

@@ -5,7 +5,9 @@ bn = 2 proof, which tests/test_golden.py holds against the JAX walk; the
 port must reproduce it bit for bit, with and without kernel-path head
 rounds. At bn = 4 the walk with head rounds (tail_bits = 2) must equal the
 all-generic walk and, on a truncated circuit, the JAX walk; it must pass
-the port's verifier, and a tampered proof must fail it.
+the port's verifier, and a tampered proof must fail it. A grouped walk
+of two instances on the truncated circuit must equal the JAX walk lane by
+lane.
 """
 
 import json
@@ -13,6 +15,7 @@ from pathlib import Path
 
 import jax.numpy as jnp
 import pytest
+import torch
 
 from gkr_mimc_tpu.circuits import circuit as jcircuit
 from gkr_mimc_tpu.circuits import gates as jgates
@@ -94,24 +97,61 @@ def test_verifier_rejects_tampering(walk_bn4, where):
         setter(target)
 
 
-def test_truncated_walk_matches_jax():
-    """bn = 4 with head rounds (tail_bits = 2) against the JAX walk, on the
-    MiMC circuit cut to its first three cipher layers: the same layer kinds
-    (91-claim fan-out aside, here 3 claims), at a cost a CPU test can pay
-    (the JAX walk of all 94 layers runs ~30 s here even when compiled)."""
-    k, bn = 3, 4
-    _, block, state, qprime = _instance(bn)
-    a = assign_fused(block, state)[: 3 + k]
+def _truncated(k):
+    """The MiMC circuit cut to its first k cipher layers, port and JAX."""
     layers = [Layer(in_=[]), Layer(in_=[]), Layer(in_=[0], gate=IdentityGate())]
     jlayers = [jcircuit.Layer(in_=[]), jcircuit.Layer(in_=[]), jcircuit.Layer(in_=[0], gate=jgates.IdentityGate())]
     for i in range(k):
         inp = [2, i + 2 if i else 1]
         layers.append(Layer(in_=inp, gate=CipherGate(ARKS_INT[i])))
         jlayers.append(jcircuit.Layer(in_=inp, gate=jgates.CipherGate(ARKS_INT[i])))
-    c, jc = Circuit(layers), jcircuit.Circuit(jlayers)
-    proof = gkr_prover.prove(c, a, qprime, tail_bits=2)
+    return Circuit(layers), jcircuit.Circuit(jlayers)
+
+
+def _jax_walk_vec(jc, tables, qprime):
+    """The JAX package's single-instance walk -> its proof_to_vec."""
     jproof = jax_gkr_prover.prove(
-        jc, [jnp.asarray(to_jax_rows(t)) for t in a], jnp.asarray(to_jax_rows(qprime.T.contiguous()).T)
+        jc, [jnp.asarray(to_jax_rows(t)) for t in tables], jnp.asarray(to_jax_rows(qprime.T.contiguous()).T)
     )
-    assert proof_to_vec(c, proof) == jax_proof_to_vec(jc, jproof)
+    return jax_proof_to_vec(jc, jproof)
+
+
+@pytest.fixture(scope="module")
+def truncated_bn4():
+    """bn = 4 on the MiMC circuit cut to its first three cipher layers,
+    with the JAX walk's vector: the same layer kinds (91-claim fan-out
+    aside, here 3 claims), at a cost a CPU test can pay (the JAX walk of
+    all 94 layers runs ~30 s here even when compiled)."""
+    k, bn = 3, 4
+    c, jc = _truncated(k)
+    _, block, state, qprime = _instance(bn)
+    a = assign_fused(block, state)[: 3 + k]
+    return c, jc, block, state, qprime, a, _jax_walk_vec(jc, a, qprime)
+
+
+def test_truncated_walk_matches_jax(truncated_bn4):
+    """bn = 4 with head rounds (tail_bits = 2) against the JAX walk."""
+    c, _, block, state, qprime, a, want = truncated_bn4
+    proof = gkr_prover.prove(c, a, qprime, tail_bits=2)
+    assert proof_to_vec(c, proof) == want
     gkr_verifier.verify(c, proof, [block, state], a[-1], qprime)
+
+
+def test_grouped_truncated_walk_matches_jax_lanes(truncated_bn4):
+    """G = 2 at bn = 4 with head rounds (tail_bits = 2), so the fused
+    Gruen stage and the identity rounds run at two lanes: lane 0 is the
+    instance above, lane 1 has its own block, state and qprime. Each lane
+    equals the JAX single-instance walk of its inputs."""
+    c, jc, block0, state0, qprime0, _, want0 = truncated_bn4
+    bn, n = 4, 16
+    block1, state1 = (fr.encode_mont_ints(random_fr_array(off + n)[off:]) for off in (n, 3 * n))
+    qprime1 = ints_to_rows(random_fr_array(bn + 1)[1:])
+    block, state = torch.stack([block0, block1], dim=1), torch.stack([state0, state1], dim=1)
+    qprime = torch.stack([qprime0, qprime1], dim=1)  # (bn, G, 8)
+    a = assign_fused(block, state)[:6]
+    proof = gkr_prover.prove(c, a, qprime, tail_bits=2)
+    assert proof.sumcheck_proofs[5].coeffs.shape == (bn, 9, 2, 8)
+    assert proof_to_vec(c, gkr_verifier.slice_group(proof, 0)) == want0
+    want1 = _jax_walk_vec(jc, [t[:, 1].contiguous() for t in a], qprime1)
+    assert proof_to_vec(c, gkr_verifier.slice_group(proof, 1)) == want1
+    gkr_verifier.verify_grouped(c, proof, [block, state], a[-1], qprime)

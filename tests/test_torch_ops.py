@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from gkr_mimc_tpu.fields import fr as jfr
+from gkr_mimc_tpu.hashes import mimc as jmimc
 from gkr_mimc_tpu.models.mimc import _assign_fused_jit
 from gkr_mimc_tpu.poly import lagrange as jlag
 from gkr_mimc_tpu.poly import multilin as jml
@@ -92,7 +93,7 @@ def test_suffix_step_matches_jax():
     rng = np.random.default_rng(3)
     bn, n_head = 5, 3
     qrows = rand_lazy(rng, bn).T.contiguous()  # (bn, 8)
-    got = sp._suffix_tables(qrows, n_head)
+    got = sp._suffix_tables(qrows.unsqueeze(-1).contiguous(), n_head)  # one group: (bn, 8, 1)
     want = jax.jit(jsp._suffix_tables, static_argnums=1)(jx(qrows.T.contiguous()).T, n_head)
     assert [vals(x) for x in got] == [jvals(x) for x in want]
 
@@ -159,6 +160,38 @@ def test_identity_acc_matches_jax(round_case):
         assert vals(got[:, :, gi].contiguous()) == jvals(p)
 
 
+@jax.jit
+def _jax_gruen_unfused(qc, qk, ck):
+    """The JAX package's unfused round stage (GKR_GRUEN_FUSE=0), which the
+    fused TPU kernel was held equal to: combine, transcript hash, eq1."""
+    p = jsp._gruen_combine(qc, qk, ck)
+    r = jmimc.mimc_hash_device(p)
+    return p, r, jfr.mul(ck, jsp._eq1_at(qk, r))
+
+
+@pytest.fixture(scope="module")
+def gruen_round_case():
+    """Four lanes of lazy inputs and the JAX stage on all four in one
+    program; the cases take lane 0 (G = 1) and lanes 1..3 (G = 3)."""
+    rng = np.random.default_rng(9)
+    qc, qk, ck = rand_lazy(rng, 8, 4), rand_lazy(rng, 4), rand_lazy(rng, 4)
+    return (qc, qk, ck), _jax_gruen_unfused(jx(qc), jx(qk), jx(ck))
+
+
+@pytest.mark.parametrize("lanes", [slice(0, 1), slice(1, 4)], ids=["g1", "g3"])
+def test_gruen_round_scalar_matches_jax_unfused(gruen_round_case, lanes):
+    (qc, qk, ck), want = gruen_round_case
+    qc, qk, ck = qc[..., lanes].contiguous(), qk[:, lanes].contiguous(), ck[:, lanes].contiguous()
+    g = qk.shape[1]
+    one = fr.one((g,))
+    alpha, beta = fr.sub(one, qk), fr.sub(fr.add(qk, qk), one)
+    p, r, ck2 = K.gruen_round_scalar(qc, alpha, beta, ck, qk)
+    assert (p.shape, r.shape, ck2.shape) == ((L, 9, g), (L, g), (L, g))
+    for got, w in zip((p, r, ck2), want):
+        assert vals(got) == jvals(w[..., lanes])
+    assert torch.equal(r, fr.canonicalize(r))
+
+
 def test_wrappers_reject_bad_shapes():
     rng = np.random.default_rng(6)
     with pytest.raises(ValueError):
@@ -169,3 +202,7 @@ def test_wrappers_reject_bad_shapes():
         K.gruen_acc(rand_lazy(rng, 8), rand_lazy(rng, 8), rand_lazy(rng, 8), rand_lazy(rng, 1))
     with pytest.raises(TypeError):
         K.suffix_step(rand_lazy(rng, 4).to(torch.int64), rand_lazy(rng, 1))
+    with pytest.raises(ValueError):  # 2 lanes of sums, 3 lanes of scalars
+        K.gruen_round_scalar(rand_lazy(rng, 8, 2), *(rand_lazy(rng, 3) for _ in range(4)))
+    with pytest.raises(ValueError):
+        K.gruen_round_scalar(rand_lazy(rng, 8, 2), *(rand_lazy(rng, 2) for _ in range(3)), rand_lazy(rng, 2).T)

@@ -60,8 +60,8 @@ def golden():
 @pytest.mark.parametrize("tail_bits", [8, 1])
 @pytest.mark.parametrize("bn", [1, 2, 3])
 def test_cipher_golden(golden, bn, tail_bits):
-    xs, claims, qps, gate = testing.initialize_cipher_gate_instance(bn)
-    scp = prover.prove(xs, testing.to_device_qprimes(qps), testing.to_device_claims(claims), gate, tail_bits)
+    xs, claims, qps, gate = testing.initialize_cipher_gate_instance(bn, "cpu")
+    scp = prover.prove(xs, testing.to_device_qprimes(qps, "cpu"), testing.to_device_claims(claims, "cpu"), gate, tail_bits)
     coeffs, chals, final = _transcript(scp)
     want = golden[f"cipher_bn{bn}"]
     assert (_strs(coeffs), _strs(chals), _strs(final)) == (want["coeffs"], want["challenges"], want["final_claims"])
@@ -69,8 +69,8 @@ def test_cipher_golden(golden, bn, tail_bits):
 
 @pytest.mark.parametrize("lo_bits", [10, 2])
 def test_multi_instance_golden(golden, lo_bits):
-    xs, claims, qps, gate = testing.initialize_multi_instance(3, 10)
-    scp = prover.prove(xs, testing.to_device_qprimes(qps), testing.to_device_claims(claims), gate, lo_bits=lo_bits)
+    xs, claims, qps, gate = testing.initialize_multi_instance(3, 10, "cpu")
+    scp = prover.prove(xs, testing.to_device_qprimes(qps, "cpu"), testing.to_device_claims(claims, "cpu"), gate, lo_bits=lo_bits)
     coeffs, chals, final = _transcript(scp)
     want = golden["multi_bn3_j10"]
     assert (_strs(coeffs), _strs(chals), _strs(final)) == (want["coeffs"], want["challenges"], want["final_claims"])
@@ -79,8 +79,8 @@ def test_multi_instance_golden(golden, lo_bits):
 
 def test_cipher_matches_jax_with_head_rounds():
     bn = 6
-    xs, claims, qps, gate = testing.initialize_cipher_gate_instance(bn)
-    scp = prover.prove(xs, testing.to_device_qprimes(qps), testing.to_device_claims(claims), gate, tail_bits=2)
+    xs, claims, qps, gate = testing.initialize_cipher_gate_instance(bn, "cpu")
+    scp = prover.prove(xs, testing.to_device_qprimes(qps, "cpu"), testing.to_device_claims(claims, "cpu"), gate, tail_bits=2)
     jxs, jclaims, jqps, jgate = jtesting.initialize_cipher_gate_instance(bn)
     want = jsp.prove(jxs, jtesting.to_device_qprimes(jqps), jtesting.to_device_claims(jclaims), jgate)
     assert _transcript(scp) == _jax_transcript(want)
@@ -106,16 +106,16 @@ def test_91_claim_identity_matches_jax_with_head_rounds():
 def test_head_tail_split_is_invisible():
     """tail_bits only moves rounds between the kernel path and the
     generic path; the transcript does not change."""
-    xs, claims, qps, gate = testing.initialize_cipher_gate_instance(5)
+    xs, claims, qps, gate = testing.initialize_cipher_gate_instance(5, "cpu")
     runs = [
-        _transcript(prover.prove(xs, testing.to_device_qprimes(qps), testing.to_device_claims(claims), gate, tb))
+        _transcript(prover.prove(xs, testing.to_device_qprimes(qps, "cpu"), testing.to_device_claims(claims, "cpu"), gate, tb))
         for tb in (0, 1, 3, 8)
     ]
     assert all(r == runs[0] for r in runs[1:])
 
 
 def test_bn0_empty_proof():
-    xs, claims, qps, gate = testing.initialize_cipher_gate_instance(0)
-    scp = prover.prove(xs, testing.to_device_qprimes(qps), testing.to_device_claims(claims), gate)
+    xs, claims, qps, gate = testing.initialize_cipher_gate_instance(0, "cpu")
+    scp = prover.prove(xs, testing.to_device_qprimes(qps, "cpu"), testing.to_device_claims(claims, "cpu"), gate)
     assert scp.coeffs.shape == (0, 9, 8) and scp.challenges.shape == (0, 8)
     assert scp.final_claims.dtype == torch.int32 and scp.final_claims.shape == (3, 8)
