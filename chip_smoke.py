@@ -2,26 +2,43 @@
 
     python3 chip_smoke.py [--bn 22]
 
-Builds the CUDA kernels from gkr_mimc_tpu_torch/csrc at first use, then:
+Builds the CUDA kernels from gkr_mimc_tpu_torch/csrc at first use (one
+nvcc per source, in parallel), then:
 
 1. toolchain and card: torch, CUDA, nvcc, the card's name and power limit,
    the build time and nvcc's register report;
 2. every kernel against its plain torch twin on the card, bit for bit, at
-   small shapes and at the main path's shapes (timed, kernel and plain,
-   beside the least time the card could take for the same work);
+   small shapes (G = 1, 2, 4; both claim-trick settings of the partial
+   evaluations; the fold at 3 tables; multi_eq at one claim) and at the
+   main path's shapes (timed, kernel and plain, beside the least time the
+   card could take for the same work), some also at a second shape;
 3. golden transcripts: MimcHash([12]) and tests/golden/transcripts.json,
    with tail_bits 8 and 1;
 4. a full GKR walk at bn = 14 and a grouped walk of G = 2 instances at
    bn = 12, each through the kernels and again through the plain twins on
    the same CUDA tensors: identical proof vectors; each grouped lane
-   equals the single-instance walk of its inputs;
+   equals the single-instance walk of its inputs. Then the two other round
+   paths, rounds="coeff" and rounds="evals", at tail_bits 2: a walk at
+   bn = 12 (its eq tables built through mul_scalar) equal to the default
+   "gruen" walk, and G = 2 lanes at bn = 10 each equal to the gruen walk
+   of its inputs;
 5. the main path at --bn (default 22, the north-star size): inputs
    generated on the card, witness, GKR proof, verification, a tamper probe,
    and the launch count of every kernel during that run;
+7. (run right after phase 5, while its witness is resident) phase 5's
+   inputs and witness proven again on the "coeff" and the "evals" round
+   paths: each proof verifies, rejects the tamper probe and has phase 5's
+   proof vector; prove time and the launch counts of each run;
 6. the grouped path, G = 4 instances at bn = --bn - 2 (as many hashes as
    the main path): inputs on the card, witness, grouped proof,
    verify_grouped, a tamper probe in lane 2 that must be named, and the
    launch counts of that run.
+
+Each path's launch counts are read from its own run, the counts set to 0
+just before it: the kernels of the default path from phase 5,
+cipher_coeff_acc from phase 7's coeff run, the partial evaluations from
+its evals run, and mul_scalar (which builds single-claim eq tables below
+2^13 entries only) from phase 4's coeff walk at bn = 12.
 
 Prints one JSON line of per-kernel results, then the nvidia-smi line, then
 {"ok": true, "device": {...}} as the last line. Exits non-zero on any
@@ -183,34 +200,69 @@ def kernel_cases(bn: int, dev, rng):
     def round_args(g):  # Q (8, 8, G); alpha, beta, ck, q_k (8, G)
         return (r(8, g), r(g), r(g), r(g), r(g))
 
+    def coeff_args(g, n_):  # eq, x0, x1 (8, G*n) with a random eq; ark (8, G)
+        return (r(g * n_), r(g * n_), r(g * n_), r(g), g)
+
+    def cpe_args(g, n_, skip):
+        return (r(g * n_), r(g * n_), r(g * n_), r(g), g, K.CIPHER_EVALS, skip)
+
+    def ipe_args(g, n_, skip):
+        return (r(g * n_), r(g * n_), g, K.IDENTITY_EVALS, skip)
+
+    def q():  # one scalar (8,)
+        return r(1)[:, 0].contiguous()
+
+    # small cases: G = 1, 2 and 4; both claim-trick settings (skip_t0 False
+    # is the output layer's full first round)
     return [
         ("mimc_witness", [(r(2), r(2), arks), (r(1 << 16), r(1 << 16), arks)],
          lambda: (r(n), r(n), arks)),
         ("mimc_hash", [(r(1),), (r(3),), (r(9),)], lambda: (r(9),)),
         ("mimc_hash_g", [(r(9, 1),), (r(9, 2048),)], lambda: (r(9, 91 * bn),)),
         ("fold", [fold_args(1, 1, 2), fold_args(2, 4, 2), fold_args(4, 1, 8),
-                  fold_args(2, 1, 1 << 16), fold_args(1, 4, 1 << 14)],
+                  fold_args(2, 1, 1 << 16), fold_args(1, 4, 1 << 14),
+                  fold_args(3, 1, 2), fold_args(3, 2, 1 << 10), fold_args(3, 4, 1 << 12)],
          lambda: fold_args(2, 1, n)),
         ("suffix_step", [(r(1), r(1)), (r(4 * 2), r(4)), (r(1 << 15), r(1)), (r(4 << 13), r(4))],
          lambda: (r(n // 4), r(1))),
-        ("multi_eq", [eq_args(1, 10, 8), eq_args(3, 5, 2), eq_args(64, 91, 1 << 10)],
+        ("multi_eq", [eq_args(1, 10, 8), eq_args(3, 5, 2), eq_args(64, 91, 1 << 10),
+                      eq_args(max(1, n >> 10), 1, min(n, 1 << 10))],  # one claim, as every cipher layer off Gruen
          lambda: eq_args(max(1, n >> 10), 91, min(n, 1 << 10))),
+        ("mul_scalar", [(r(1), q()), (r(512), q()), (r(3000), q())],
+         lambda: (r(n // 2), q())),  # the largest doubling step, 2^(bn-1) -> 2^bn
         ("gruen_acc", [acc_args(1, 2), acc_args(4, 2), acc_args(1, 1 << 16), acc_args(4, 1 << 12)],
          lambda: acc_args(1, n)),
+        ("cipher_coeff_acc", [coeff_args(1, 2), coeff_args(2, 2), coeff_args(4, 8), coeff_args(1, 1 << 16),
+                              coeff_args(2, 1 << 10), coeff_args(4, 1 << 12)],
+         lambda: coeff_args(1, n)),
         ("identity_acc", [(r(2), r(2), 1), (r(8), r(8), 4), (r(1 << 16), r(1 << 16), 1),
                           (r(4 << 12), r(4 << 12), 4)],
          lambda: (r(n), r(n), 1)),
+        ("cipher_partial_evals", [cpe_args(g, m, skip) for g, m in ((1, 2), (2, 8), (4, 1 << 12), (1, 1 << 16))
+                                  for skip in (False, True)],
+         lambda: cpe_args(1, n, True)),
+        ("identity_partial_evals", [ipe_args(g, m, skip) for g, m in ((1, 2), (2, 8), (4, 1 << 12), (1, 1 << 16))
+                                    for skip in (False, True)],
+         lambda: ipe_args(1, n, True)),
         ("gruen_round_scalar", [round_args(1), round_args(2), round_args(4), round_args(2048)],
          lambda: round_args(1)),
     ]
 
 
 # Extra shapes timed beside the main one (name -> label, args factory).
-def extra_timings(dev, rng):
+def extra_timings(bn: int, dev, rng):
     def r(*shape):
         return rand_lazy(rng, shape, dev)
 
-    return {"gruen_round_scalar": ("G = 4", lambda: (r(8, GROUPS),) + tuple(r(GROUPS) for _ in range(4)))}
+    m = 1 << (bn - 2)  # G = 4 lanes of 2^(bn-2): the grouped path's tables
+    return {
+        "fold": ("nt = 3 (eq, x0, x1)", lambda: ([r(1 << bn) for _ in range(3)], r(1))),
+        "cipher_partial_evals": (f"G = {GROUPS}", lambda: (r(GROUPS * m), r(GROUPS * m), r(GROUPS * m), r(GROUPS),
+                                                          GROUPS, K.CIPHER_EVALS, True)),
+        "identity_partial_evals": (f"G = {GROUPS}", lambda: (r(GROUPS * m), r(GROUPS * m), GROUPS,
+                                                            K.IDENTITY_EVALS, True)),
+        "gruen_round_scalar": (f"G = {GROUPS}", lambda: (r(8, GROUPS),) + tuple(r(GROUPS) for _ in range(4))),
+    }
 
 
 def work(name: str, args) -> tuple[int, int]:
@@ -239,9 +291,21 @@ def work(name: str, args) -> tuple[int, int]:
         s_, x0, _, ark = args
         half, g = s_.shape[-1], ark.shape[-1]
         return FE * (half + 4 * half + g + 8 * g), 25 * half + 8 * g
+    if name == "mul_scalar":
+        x, _ = args
+        return FE * (2 * x.shape[-1] + 1), x.shape[-1]
     if name == "identity_acc":
         eq, _, g = args
         return FE * (2 * eq.shape[-1] + 3 * g), 4 * (eq.shape[-1] // 2)
+    if name == "cipher_coeff_acc":
+        eq, _, _, _, g = args
+        # 9 for the powers, 8 raws, 16 weighted by e and de, per point
+        return FE * (3 * eq.shape[-1] + g + 9 * g), 33 * (eq.shape[-1] // 2)
+    if name in ("cipher_partial_evals", "identity_partial_evals"):
+        eq, g, n_evals, skip = args[0], args[-3], args[-2], args[-1]
+        n_out, n_tables = n_evals - bool(skip), (3 if name.startswith("cipher") else 2)
+        per_t = 5 if name.startswith("cipher") else 1  # x^7 and the eq weight, or the eq weight
+        return FE * (n_tables * eq.shape[-1] + (g if n_tables == 3 else 0) + n_out * g), per_t * n_out * (eq.shape[-1] // 2)
     if name == "gruen_round_scalar":
         g = args[0].shape[-1]
         # combine 16 + 9, hash 9 words x 91 rounds x 4, eq1 and ck' 2
@@ -260,7 +324,7 @@ def bound(name: str, args) -> tuple[float, str]:
 def phase_kernels(bn: int, dev) -> dict:
     rng = np.random.default_rng(2024)
     results = {}
-    extras = extra_timings(dev, rng)
+    extras = extra_timings(bn, dev, rng)
     for name, small, main in kernel_cases(bn, dev, rng):
         kern, plain = getattr(K, name), K.PLAIN[name]
         err = 0
@@ -349,15 +413,19 @@ def phase_golden(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
+def walk_inputs(bn: int, dev):
+    """The main path's inputs on the card: block = state = the generator's
+    stream at 0, qprime = random_fr_array(bn)."""
+    block = fr.to_mont(random_fr_device(1 << bn, 0, dev))
+    return block, block.clone(), ints_to_rows(random_fr_array(bn), dev)
+
+
 def walk(bn: int, dev):
     """Inputs on the card -> witness -> proof; returns timings and artifacts."""
-    n = 1 << bn
     c = mimc_circuit()
     sync()
     t0 = time.perf_counter()
-    block = fr.to_mont(random_fr_device(n, 0, dev))
-    state = block.clone()
-    qprime = ints_to_rows(random_fr_array(bn), dev)
+    block, state, qprime = walk_inputs(bn, dev)
     sync()
     t1 = time.perf_counter()
     a = assign_fused(block, state)
@@ -427,6 +495,64 @@ def phase_grouped_cross_check(bn: int, g: int, dev, tail_bits: int = 2) -> None:
         f"{t_p['prove_s']:.2f} s plain")
 
 
+ROUND_PATHS = ("coeff", "evals")
+# kernels each path must launch (beside the hash and the fold)
+PATH_KERNELS = {
+    "gruen": ["mimc_witness", "mimc_hash", "mimc_hash_g", "fold", "suffix_step", "multi_eq", "gruen_acc",
+              "identity_acc", "gruen_round_scalar"],
+    "coeff": ["mimc_hash", "mimc_hash_g", "fold", "multi_eq", "cipher_coeff_acc", "identity_acc"],
+    "evals": ["mimc_hash", "mimc_hash_g", "fold", "multi_eq", "cipher_partial_evals", "identity_partial_evals"],
+}
+
+
+def require_launched(launches: dict, names, what: str) -> None:
+    missing = [name for name in names if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on {what}: {missing}")
+
+
+def phase_round_paths_small(bn: int, gbn: int, g: int, dev, tail_bits: int = 2) -> dict:
+    """The "coeff" and "evals" round paths against the default "gruen" path
+    on the same inputs: a single walk at bn (12: its single-claim eq tables
+    take the doubling build through mul_scalar) and G lanes at gbn, each
+    lane against the default single walk of its inputs. Small tail_bits
+    put most rounds on the kernels. Returns the launch counts of each
+    path's single walk (with its verification)."""
+    c = mimc_circuit()
+    block, state, qprime = walk_inputs(bn, dev)
+    a = assign_fused(block, state)
+    want = proof_to_vec(c, gkr_prover.prove(c, a, qprime, tail_bits))
+    launches = {}
+    for rounds in ROUND_PATHS:
+        K.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        proof = gkr_prover.prove(c, a, qprime, tail_bits, rounds=rounds)
+        sync()
+        prove_s = time.perf_counter() - t0
+        gkr_verifier.verify(c, proof, [block, state], a[93], qprime)
+        launches[rounds] = dict(K.LAUNCHES)
+        require_launched(launches[rounds], PATH_KERNELS[rounds] + ["mul_scalar"], f"the {rounds} walk at bn={bn}")
+        if proof_to_vec(c, proof) != want:
+            raise AssertionError(f"bn={bn}: the {rounds} walk differs from the gruen walk")
+        log(f"# round path {rounds} bn={bn}, tail_bits={tail_bits}: proof vector equal to the gruen walk's, "
+            f"verified; prove {prove_s:.2f} s; launches {json.dumps({k: v for k, v in launches[rounds].items() if v})}")
+    del a, proof
+
+    block, state, qprime = grouped_inputs(gbn, g, dev)
+    a = assign_fused(block, state)
+    singles = [proof_to_vec(c, gkr_prover.prove(c, [t[:, i].contiguous() for t in a], qprime[:, i].contiguous(),
+                                                 tail_bits)) for i in range(g)]
+    for rounds in ROUND_PATHS:
+        proof = gkr_prover.prove(c, a, qprime, tail_bits, rounds=rounds)
+        if [proof_to_vec(c, gkr_verifier.slice_group(proof, i)) for i in range(g)] != singles:
+            raise AssertionError(f"G={g} x bn={gbn}: a lane of the {rounds} walk differs from its single gruen walk")
+        gkr_verifier.verify_grouped(c, proof, [block, state], a[93], qprime)
+    log(f"# round paths G={g} x bn={gbn}, tail_bits={tail_bits}: every lane of the coeff and evals walks equals "
+        f"the gruen single walk of its inputs; verified")
+    return launches
+
+
 def check_outputs(out: torch.Tensor, block_off: int, state_off: int, n: int, what: str) -> None:
     """A few instances of an (8, n) output table against the host MiMC
     permutation of the generator's block and state streams."""
@@ -441,7 +567,51 @@ def check_outputs(out: torch.Tensor, block_off: int, state_off: int, n: int, wha
         raise AssertionError(f"{what}: output table disagrees with the host MiMC permutation")
 
 
+def tamper_probe(c, proof, block, state, a, qprime, what: str) -> None:
+    """One flipped coefficient bit must be rejected."""
+    good = proof.sumcheck_proofs[50].coeffs
+    bad = good.clone()
+    bad[0, 0, 0] ^= 1
+    proof.sumcheck_proofs[50].coeffs = bad
+    try:
+        gkr_verifier.verify(c, proof, [block, state], a[93], qprime)
+    except gkr_verifier.GKRError as e:
+        log(f"# {what} tamper probe rejected: {e}")
+    else:
+        raise AssertionError(f"{what}: a tampered proof was accepted")
+    finally:
+        proof.sumcheck_proofs[50].coeffs = good
+
+
+def expected_launches(bn: int, rounds: str) -> dict:
+    """Launches of a single walk and its verification, from the round
+    schedule: 91 cipher layers and the 91-claim identity layer, each with
+    max(0, bn - TAIL_BITS) head rounds and min(bn, TAIL_BITS) tail rounds;
+    the verifier folds the output and the two input tables once per
+    variable."""
+    head, tail = max(0, bn - sumcheck_prover.TAIL_BITS), min(bn, sumcheck_prover.TAIL_BITS)
+    if rounds == "gruen":
+        return {"gruen_round_scalar": 91 * head, "mimc_hash": 92 * tail + head + 1}
+    cipher = "cipher_coeff_acc" if rounds == "coeff" else "cipher_partial_evals"
+    ident = "identity_acc" if rounds == "coeff" else "identity_partial_evals"
+    big = bn >= sumcheck_prover.MULTI_EQ_MIN_BITS  # single-claim eq tables by the contraction
+    return {cipher: 91 * head, ident: head, "fold": 92 * head + 3 * bn, "multi_eq": 92 if big else 1,
+            # the combined claim of the evals path hashes the 91 claims again
+            "mimc_hash": 92 * bn + 1 + (rounds == "evals"),
+            "mul_scalar": 0 if big else 91 * max(0, bn - 9), "suffix_step": 0, "gruen_acc": 0,
+            "gruen_round_scalar": 0}
+
+
+def report_launches(launches: dict, bn: int, rounds: str, what: str) -> None:
+    expected = expected_launches(bn, rounds)
+    same = all(launches[k] == v for k, v in expected.items())
+    log(f"# launches on {what}: {json.dumps(launches)}")
+    log(f"# expected from the round schedule: {json.dumps(expected)}; {'as expected' if same else 'DIFFERENT'}")
+
+
 def phase_main(bn: int, dev, card: str) -> dict:
+    """Returns the walk's inputs, witness, times, proof vector and launch
+    counts for phase 7."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
@@ -453,34 +623,54 @@ def phase_main(bn: int, dev, card: str) -> dict:
     launches = dict(K.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    missing = [name for name, count in launches.items() if count == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    require_launched(launches, PATH_KERNELS["gruen"], "the main path")
     check_outputs(a[93], 0, 0, 1 << bn, "main path")  # block = state = the stream at 0
-    # tamper probe: one flipped coefficient bit must be rejected
-    bad = proof.sumcheck_proofs[50].coeffs.clone()
-    bad[0, 0, 0] ^= 1
-    good = proof.sumcheck_proofs[50].coeffs
-    proof.sumcheck_proofs[50].coeffs = bad
-    try:
-        gkr_verifier.verify(c, proof, [block, state], a[93], qprime)
-    except gkr_verifier.GKRError as e:
-        log(f"# tamper probe rejected: {e}")
-    else:
-        raise AssertionError("a tampered proof was accepted")
-    proof.sumcheck_proofs[50].coeffs = good
+    tamper_probe(c, proof, block, state, a, qprime, "main path")
 
     n = 1 << bn
     hps = n / (times["witness_s"] + times["prove_s"])
     log(f"# main path bn={bn} on {card}: inputs {times['inputs_s']:.3f} s, witness "
         f"{times['witness_s']:.3f} s, prove {times['prove_s']:.3f} s, verify {times['verify_s']:.3f} s, "
         f"{hps:,.0f} hashes proven/s (witness + prove), peak memory {peak_gb:.2f} GB")
-    log(f"# launches on the main path: {json.dumps(launches)}")
-    head = max(0, bn - sumcheck_prover.TAIL_BITS)
-    expected = {"gruen_round_scalar": 91 * head,
-                "mimc_hash": 92 * min(bn, sumcheck_prover.TAIL_BITS) + head + 1}
-    log(f"# expected from the round schedule: {json.dumps(expected)}; "
-        f"{'as expected' if all(launches[k] == v for k, v in expected.items()) else 'DIFFERENT'}")
+    report_launches(launches, bn, "gruen", "the main path")
+    main = {"c": c, "block": block, "state": state, "qprime": qprime, "a": a, "times": times,
+            "vec": proof_to_vec(c, proof), "launches": launches}
+    del proof
+    return main
+
+
+def phase_round_paths_main(bn: int, main: dict, dev, card: str) -> dict:
+    """Phase 7: phase 5's inputs and witness proven again on the "coeff"
+    and "evals" round paths; each proof verifies, rejects the tamper probe
+    and has phase 5's proof vector. Returns each path's launch counts."""
+    c, block, state, qprime, a = (main[k] for k in ("c", "block", "state", "qprime", "a"))
+    n = 1 << bn
+    launches = {}
+    for rounds in ROUND_PATHS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        proof = gkr_prover.prove(c, a, qprime, rounds=rounds)
+        sync()
+        prove_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gkr_verifier.verify(c, proof, [block, state], a[93], qprime)
+        sync()
+        verify_s = time.perf_counter() - t0
+        launches[rounds] = dict(K.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        require_launched(launches[rounds], PATH_KERNELS[rounds], f"the {rounds} path")
+        if proof_to_vec(c, proof) != main["vec"]:
+            raise AssertionError(f"bn={bn}: the {rounds} proof vector differs from the main path's")
+        tamper_probe(c, proof, block, state, a, qprime, f"{rounds} path")
+        del proof
+        hps = n / (main["times"]["witness_s"] + prove_s)
+        log(f"# round path {rounds} bn={bn} on {card}: proof vector equal to the main path's; prove {prove_s:.3f} s, "
+            f"verify {verify_s:.3f} s, {hps:,.0f} hashes proven/s (main path's witness + this prove), "
+            f"peak memory {peak_gb:.2f} GB")
+        report_launches(launches[rounds], bn, rounds, f"the {rounds} path")
     return launches
 
 
@@ -496,9 +686,7 @@ def phase_grouped(bn: int, g: int, dev, card: str) -> dict:
     launches = dict(K.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    missing = [name for name, count in launches.items() if count == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the grouped path: {missing}")
+    require_launched(launches, PATH_KERNELS["gruen"], "the grouped path")
     n = 1 << bn
     for i in range(g):
         check_outputs(a[93][:, i], i * n, (g + i) * n, n, f"grouped lane {i}")
@@ -555,13 +743,24 @@ def main() -> int:
     phase_golden(dev)  # 3.
     phase_cross_check(min(14, bn), dev)  # 4.
     phase_grouped_cross_check(min(12, bn - 2), 2, dev)
-    launches = phase_main(bn, dev, card)  # 5.
+    small = phase_round_paths_small(min(12, bn), min(10, bn - 2), 2, dev)
+    main_run = phase_main(bn, dev, card)  # 5.
+    paths = phase_round_paths_main(bn, main_run, dev, card)  # 7., while phase 5's witness is resident
+    launches = main_run["launches"]
+    del main_run
     phase_grouped(bn - 2, GROUPS, dev, card)  # 6.
 
+    # each kernel's launches from the run of the path that runs it
+    counted_on = {"cipher_coeff_acc": ("phase 7 coeff", paths["coeff"]),
+                  "cipher_partial_evals": ("phase 7 evals", paths["evals"]),
+                  "identity_partial_evals": ("phase 7 evals", paths["evals"]),
+                  "mul_scalar": (f"phase 4 coeff, bn={min(12, bn)}", small["coeff"])}
     kernels = []
     for name, (source, replaces) in K.KERNELS.items():
+        where, counts = counted_on.get(name, ("phase 5", launches))
+        log(f"# launches of {name}: {counts[name]} ({where})")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], **kernel_results[name]})
+                        "launches": counts[name], **kernel_results[name]})
     log(f"# chip_smoke total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

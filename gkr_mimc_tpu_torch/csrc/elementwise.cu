@@ -1,14 +1,14 @@
 // Elementwise multiply passes: the sumcheck fold, the Gruen suffix-table
-// doubling step and the multi-claim eq contraction. Each computes, per
-// output element, a Montgomery multiply-add with a per-group scalar or a
-// small table.
+// doubling step, the multi-claim eq contraction and the eq-table doubling
+// multiply. Each computes, per output element, a Montgomery multiply(-add)
+// with a per-group scalar or a small table.
 //
-// Bound on the H100: device-memory bytes for fold and suffix_step (one read
-// and one write of 32 B per element against one Montgomery product);
-// integer multiply throughput for multi_eq (J = 91 products per 32 B
-// written, on tables that stay in the 50 MB L2). Design: one thread per
-// output element, limb-major loads so a warp reads 32 neighbouring words
-// per limb; the per-group scalar is a broadcast load.
+// Bound on the H100: device-memory bytes for fold, suffix_step and
+// mul_scalar (one read and one write of 32 B per element against one
+// Montgomery product); integer multiply throughput for multi_eq (J = 91
+// products per 32 B written, on tables that stay in the 50 MB L2). Design:
+// one thread per output element, limb-major loads so a warp reads 32
+// neighbouring words per limb; the per-group scalar is a broadcast load.
 #include <cuda_runtime.h>
 
 #include "fr.cuh"
@@ -23,10 +23,12 @@ struct Tables {
   int32_t* out[kMaxTables];
 };
 
-// Replaces gkr_mimc_tpu/ops/kernels.py:fold_tables_band (and
-// fold_tables_gm, which gives the same values). Per group g of each table
-// (group-major, G * n entries): out = bot + r_g * (top - bot), halving it.
-// blockIdx.y picks the table, so nt tables go in one launch.
+// Replaces gkr_mimc_tpu/ops/kernels.py:fold_tables_band and the three
+// folds that compute the same function and differ only in how the TPU's
+// matrix unit multiplies: fold_tables_gm (group-major), fold_tables (one
+// instance) and fold_tables_g (grouped (16, G, n) tables). Per group g of
+// each table (group-major, G * n entries): out = bot + r_g * (top - bot),
+// halving it. blockIdx.y picks the table, so nt tables go in one launch.
 __global__ void __launch_bounds__(kThreads)
     fold_kernel(Tables t, const int32_t* r, int64_t half, int64_t g) {
   const int64_t o = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -79,6 +81,15 @@ __global__ void __launch_bounds__(kThreads)
   fr::store(out, c * b, o, acc);
 }
 
+// Replaces gkr_mimc_tpu/ops/kernels.py:mul_scalar, the eq-table doubling
+// multiply: out = x * r over an (8, n) table, r one element.
+__global__ void __launch_bounds__(kThreads)
+    mul_scalar_kernel(const int32_t* x, const int32_t* r, int32_t* out, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  fr::store(out, n, i, fr::mul(fr::load(x, n, i), fr::load(r, 1, 0)));
+}
+
 unsigned blocks_for(int64_t n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -120,5 +131,13 @@ extern "C" int gkr_multi_eq(const void* mh, const void* lo, void* out, int64_t c
   multi_eq_kernel<<<blocks_for(c * b), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(mh), static_cast<const int32_t*>(lo), static_cast<int32_t*>(out),
       c, j, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (8, n); r: (8,); out: (8, n).
+extern "C" int gkr_mul_scalar(const void* x, const void* r, void* out, int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  mul_scalar_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), static_cast<const int32_t*>(r), static_cast<int32_t*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }

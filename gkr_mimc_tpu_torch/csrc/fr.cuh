@@ -176,6 +176,18 @@ __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) {
   return r;
 }
 
+// c * x mod 2p for a small constant c >= 1, by doubling and adding from
+// the top bit of c. Each add is exact mod 2p, so the result is the one
+// representative of c * x in [0, 2p), whatever chain computed it.
+__device__ __forceinline__ Fe mul_small(const Fe& x, uint32_t c) {
+  Fe r = x;
+  for (int b = 30 - __clz(c); b >= 0; --b) {
+    r = add(r, r);
+    if ((c >> b) & 1u) r = add(r, x);
+  }
+  return r;
+}
+
 // x^7 as square, mul, square, mul (the reference S-box chain).
 __device__ __forceinline__ Fe pow7(const Fe& x) {
   Fe x2 = mul(x, x);

@@ -231,6 +231,18 @@ def square(a: torch.Tensor) -> torch.Tensor:
     return mul(a, a)
 
 
+def mul_small(a: torch.Tensor, c: int) -> torch.Tensor:
+    """c * a mod 2p for a small integer c >= 1, by doubling and adding from
+    the top bit of c (csrc/fr.cuh mul_small): each add is exact mod 2p, so
+    the bits do not depend on the chain."""
+    r = a
+    for bit in bin(c)[3:]:
+        r = add(r, r)
+        if bit == "1":
+            r = add(r, a)
+    return r
+
+
 def pow7(a: torch.Tensor) -> torch.Tensor:
     """x^7 as square, mul, square, mul (the reference S-box chain)."""
     x2 = square(a)

@@ -40,9 +40,11 @@ class GKRProof:
 
 
 def prove(circuit: Circuit, assignment: list, qprime: torch.Tensor,
-          tail_bits: int = sumcheck_prover.TAIL_BITS) -> GKRProof:
+          tail_bits: int = sumcheck_prover.TAIL_BITS, rounds: str = "gruen") -> GKRProof:
     """assignment: (8, N) tables, one per layer; qprime: (bn, 8) rows, the
-    initial evaluation point.
+    initial evaluation point. tail_bits and rounds pass to every layer's
+    sumcheck (``sumcheck.prover.prove``): rounds picks the head-round path,
+    "gruen", "coeff" or "evals", and does not change the proof.
 
     Grouped (G independent instances in one walk; the transcript hashes of
     all lanes run in lockstep): assignment tables (8, G, N), qprime
@@ -69,7 +71,7 @@ def prove(circuit: Circuit, assignment: list, qprime: torch.Tensor,
             claims_out[layer] = claim_rows
             claims = claim_rows.movedim(-1, 0).contiguous()  # (8, J[, G])
         xs = [assignment[j] for j in circuit[layer].in_]
-        scp = sumcheck_prover.prove(xs, qprimes, claims, circuit[layer].gate, tail_bits)
+        scp = sumcheck_prover.prove(xs, qprimes, claims, circuit[layer].gate, tail_bits, rounds=rounds)
         proofs[layer] = scp
         for i, inp in enumerate(circuit[layer].in_):
             slot = circuit.out_slot(inp, layer)

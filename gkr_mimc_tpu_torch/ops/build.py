@@ -1,8 +1,10 @@
 """Build the CUDA kernels of ``csrc/`` into one shared library at first use
 and load it with ctypes.
 
-The library has a plain C interface (no PyTorch headers), so ``nvcc``
-builds it in seconds. It goes to ``_build/`` beside the package (listed in
+The library has a plain C interface (no PyTorch headers). Each source is
+compiled by its own ``nvcc`` process, all started together, and the objects
+are then linked into one library; the build takes as long as the slowest
+source. It goes to ``_build/`` beside the package (listed in
 ``.gitignore``) under a name keyed by a hash of the sources and flags; a
 changed source builds anew, an unchanged one loads the existing file.
 ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory and spills per
@@ -22,10 +24,11 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -39,6 +42,10 @@ SIGNATURES = {
     "gkr_gruen_acc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gkr_identity_acc": (_P, _P, _P, _P, _I, _I, _I, _P),
     "gkr_gruen_round": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "gkr_cipher_coeff_acc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "gkr_cipher_partial_evals": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gkr_identity_partial_evals": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gkr_mul_scalar": (_P, _P, _P, _I, _P),
 }
 
 
@@ -47,7 +54,7 @@ def sources() -> list[Path]:
 
 
 def source_digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -71,18 +78,42 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists."""
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` per source in parallel, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    Path(f"{out}.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    os.replace(tmp, out)
+    nvcc = nvcc_path()
+    stem = f"{out.stem}.{os.getpid()}"
+    jobs = []  # (source, object, log, process)
+    try:
+        for src in sources():
+            obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+            log = BUILD_DIR / f"{stem}.{src.stem}.log"
+            with open(log, "w") as fh:
+                cmd = [nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+                jobs.append((src, obj, log, subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)))
+        failed = [src.name for src, _, _, proc in jobs if proc.wait() != 0]
+        report = "".join(f"== {src.name}\n{log.read_text()}" for src, _, log, _ in jobs)
+        if not failed:
+            tmp = out.with_name(f"{stem}.tmp")
+            res = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for _, o, _, _ in jobs)],
+                                 capture_output=True, text=True)
+            report += f"== link\n{res.stdout}{res.stderr}"
+            if res.returncode != 0:
+                failed = ["link"]
+        Path(f"{out}.log").write_text(report)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{report[-4000:]}")
+        os.replace(tmp, out)
+    finally:
+        for _, obj, log, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            obj.unlink(missing_ok=True)
+            log.unlink(missing_ok=True)
     return out
 
 

@@ -1,23 +1,28 @@
-"""The main path's CUDA kernels: one wrapper per kernel, each beside its
-plain torch twin.
+"""The port's CUDA kernels: one wrapper per kernel, each beside its plain
+torch twin.
 
-Every Pallas kernel that the reference's default path reaches has a
+Every Pallas kernel that a sumcheck path of the reference reaches has a
 hand-written CUDA counterpart in ``csrc/`` (compiled for sm_90a by
 ``ops/build.py``):
 
-==================  =====================  =========================================
-wrapper             CUDA source            replaces (gkr_mimc_tpu/ops/kernels.py)
-==================  =====================  =========================================
-mimc_witness        csrc/witness.cu        mimc_witness (:136)
-mimc_hash           csrc/mimc_hash.cu      mimc_hash_fs (:253), G = 1
-mimc_hash_g         csrc/mimc_hash.cu      mimc_hash_fs_g (:1321), G lanes
-fold                csrc/elementwise.cu    fold_tables_band (:935)
-suffix_step         csrc/elementwise.cu    suffix_step_band (:1000)
-multi_eq            csrc/elementwise.cu    multi_eq_accum (:1588)
-gruen_acc           csrc/round_acc.cu      cipher_gruen_acc (:740) + finish_gruen_acc
-identity_acc        csrc/round_acc.cu      identity_coeff_acc (:651) + finish_coeff_acc
-gruen_round_scalar  csrc/gruen_round.cu    gruen_round_scalar (:1446)
-==================  =====================  =========================================
+======================  ======================  ===============================================
+wrapper                 CUDA source             replaces (gkr_mimc_tpu/ops/kernels.py)
+======================  ======================  ===============================================
+mimc_witness            csrc/witness.cu         mimc_witness (:136)
+mimc_hash               csrc/mimc_hash.cu       mimc_hash_fs (:253), G = 1
+mimc_hash_g             csrc/mimc_hash.cu       mimc_hash_fs_g (:1321), G lanes
+fold                    csrc/elementwise.cu     fold_tables_band (:935), fold_tables_gm (:867),
+                                                fold_tables (:1519), fold_tables_g (:1240)
+suffix_step             csrc/elementwise.cu     suffix_step_band (:1000)
+multi_eq                csrc/elementwise.cu     multi_eq_accum (:1588)
+mul_scalar              csrc/elementwise.cu     mul_scalar (:1616)
+gruen_acc               csrc/round_acc.cu       cipher_gruen_acc (:740) + finish_gruen_acc
+cipher_coeff_acc        csrc/round_acc.cu       cipher_coeff_acc (:644) + finish_coeff_acc
+identity_acc            csrc/round_acc.cu       identity_coeff_acc (:651) + finish_coeff_acc
+cipher_partial_evals    csrc/partial_evals.cu   cipher_partial_evals (:377), cipher_partial_evals_g (:1211)
+identity_partial_evals  csrc/partial_evals.cu   identity_partial_evals (:411), identity_partial_evals_g (:1223)
+gruen_round_scalar      csrc/gruen_round.cu     gruen_round_scalar (:1446)
+======================  ======================  ===============================================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its outputs with ``torch.empty``, launches on the
@@ -52,11 +57,21 @@ KERNELS = {
     "mimc_witness": ("gkr_mimc_tpu_torch/csrc/witness.cu", "gkr_mimc_tpu/ops/kernels.py:136"),
     "mimc_hash": ("gkr_mimc_tpu_torch/csrc/mimc_hash.cu", "gkr_mimc_tpu/ops/kernels.py:253"),
     "mimc_hash_g": ("gkr_mimc_tpu_torch/csrc/mimc_hash.cu", "gkr_mimc_tpu/ops/kernels.py:1321"),
-    "fold": ("gkr_mimc_tpu_torch/csrc/elementwise.cu", "gkr_mimc_tpu/ops/kernels.py:935"),
+    "fold": ("gkr_mimc_tpu_torch/csrc/elementwise.cu",
+             "gkr_mimc_tpu/ops/kernels.py:935 fold_tables_band, :867 fold_tables_gm, "
+             ":1519 fold_tables, :1240 fold_tables_g"),
     "suffix_step": ("gkr_mimc_tpu_torch/csrc/elementwise.cu", "gkr_mimc_tpu/ops/kernels.py:1000"),
     "multi_eq": ("gkr_mimc_tpu_torch/csrc/elementwise.cu", "gkr_mimc_tpu/ops/kernels.py:1588"),
+    "mul_scalar": ("gkr_mimc_tpu_torch/csrc/elementwise.cu", "gkr_mimc_tpu/ops/kernels.py:1616"),
     "gruen_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu", "gkr_mimc_tpu/ops/kernels.py:740"),
+    "cipher_coeff_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu", "gkr_mimc_tpu/ops/kernels.py:644"),
     "identity_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu", "gkr_mimc_tpu/ops/kernels.py:651"),
+    "cipher_partial_evals": ("gkr_mimc_tpu_torch/csrc/partial_evals.cu",
+                             "gkr_mimc_tpu/ops/kernels.py:377 cipher_partial_evals, "
+                             ":1211 cipher_partial_evals_g"),
+    "identity_partial_evals": ("gkr_mimc_tpu_torch/csrc/partial_evals.cu",
+                               "gkr_mimc_tpu/ops/kernels.py:411 identity_partial_evals, "
+                               ":1223 identity_partial_evals_g"),
     "gruen_round_scalar": ("gkr_mimc_tpu_torch/csrc/gruen_round.cu", "gkr_mimc_tpu/ops/kernels.py:1446"),
 }
 
@@ -206,7 +221,7 @@ def mimc_hash_g_plain(msgs):
 
 
 # ---------------------------------------------------------------------------
-# Elementwise passes: fold, suffix step, multi-claim eq
+# Elementwise passes: fold, suffix step, multi-claim eq, eq-table multiply
 # ---------------------------------------------------------------------------
 
 
@@ -290,8 +305,25 @@ def multi_eq_plain(mh, lo):
     return acc.reshape(L, c * b)
 
 
+def mul_scalar(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The eq-table doubling multiply: x (8, n) times one element r (8,)
+    -> (8, n)."""
+    if x.dim() != 2 or x.shape[0] != L or x.shape[1] < 1:
+        raise ValueError(f"mul_scalar: shape {tuple(x.shape)}, expected (8, n)")
+    _expect("mul_scalar", r, (L,))
+    if _on_cpu("mul_scalar", x, r):
+        return mul_scalar_plain(x, r)
+    out = _empty(x.shape, x)
+    _launch("mul_scalar", "gkr_mul_scalar", x.device, _ptr(x), _ptr(r), _ptr(out), x.shape[1])
+    return out
+
+
+def mul_scalar_plain(x, r):
+    return fr.mul(x, r.reshape(L, 1))
+
+
 # ---------------------------------------------------------------------------
-# Round accumulators
+# Round sums in coefficient form
 # ---------------------------------------------------------------------------
 
 
@@ -299,65 +331,99 @@ def _blocks_per_group(half: int, g: int) -> int:
     return max(1, min(-(-half // _ACC_THREADS), 2048 // g))
 
 
-def gruen_acc(s: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor, ark: torch.Tensor) -> torch.Tensor:
-    """Gruen cipher round: s (8, G*n/2) suffix eq weights, x0, x1 (8, G*n),
-    ark (8, G) -> Q (8, 8, G), Q_m = C(7,m) * sum_y S[y] u^(7-m) v^m with
-    u = x0[y] + x1[y] + ark, v = x0[y+n/2] + x1[y+n/2] + ark - u."""
-    g, total = ark.shape[-1], x0.shape[-1]
-    _expect("gruen_acc", ark, (L, g))
-    _expect("gruen_acc", x0, (L, total))
-    _expect("gruen_acc", x1, (L, total))
-    _expect("gruen_acc", s, (L, total // 2))
-    half = _group_size("gruen_acc", total, g, 2) // 2
-    if _on_cpu("gruen_acc", s, x0, x1, ark):
-        return gruen_acc_plain(s, x0, x1, ark)
+def _round_geometry(name: str, tables, g: int) -> int:
+    """Check equal group-major (8, G*n) tables; -> half = n/2."""
+    total = tables[0].shape[-1]
+    for t in tables:
+        _expect(name, t, (L, total))
+    return _group_size(name, total, g, 2) // 2
+
+
+def _round_sums(name: str, entry: str, ns: int, g: int, half: int, ins, *extra) -> torch.Tensor:
+    """Launch a two-pass round-sum kernel on its input tensors ``ins``:
+    (g * bpg, ns, 8) partials scratch -> (8, ns, G)."""
     bpg = _blocks_per_group(half, g)
-    partial = _empty((g * bpg, 8, L), s)
-    out = _empty((L, 8, g), s)
-    binom_rows = _binom7(s.device).T.contiguous()
-    _launch("gruen_acc", "gkr_gruen_acc", s.device, _ptr(s), _ptr(x0), _ptr(x1), _ptr(ark),
-            _ptr(binom_rows), _ptr(partial), _ptr(out), half, g, bpg)
+    partial = _empty((g * bpg, ns, L), ins[0])
+    out = _empty((L, ns, g), ins[0])
+    _launch(name, entry, ins[0].device, *map(_ptr, ins), _ptr(partial), _ptr(out), half, g, bpg, *extra)
     return out
 
 
-def gruen_acc_plain(s, x0, x1, ark):
-    g = ark.shape[-1]
+def _cipher_line(x0, x1, ark, g: int):
+    """Per group: u = x0_bot + x1_bot + ark, v = x0_top + x1_top + ark - u."""
     a = ark.reshape(L, g, 1)
     x0b, x0t = _halves(x0, g)
     x1b, x1t = _halves(x1, g)
     u = fr.add(fr.add(x0b, x1b), a)
-    v = fr.sub(fr.add(fr.add(x0t, x1t), a), u)
-    w = s.reshape(L, 1, g, -1)
+    return u, fr.sub(fr.add(fr.add(x0t, x1t), a), u)
+
+
+def _cipher_raws(u, v) -> torch.Tensor:
+    """raw_k = u^(7-k) v^k, k = 0..7, by the product chain of
+    csrc/round_acc.cu -> (8, 8, *S)."""
 
     def muls(pairs):  # elementwise products of several pairs in one call
         prod = fr.mul(torch.stack([x for x, _ in pairs], 1), torch.stack([y for _, y in pairs], 1))
         return prod.unbind(1)
 
-    # the product chain of csrc/round_acc.cu
     u2, v2, uv = muls([(u, u), (v, v), (u, v)])
     u3, v3, uv2 = muls([(u2, u), (v2, v), (uv, uv)])
     u6, v6, uv3 = muls([(u3, u3), (v3, v3), (uv, uv2)])
-    raws = muls([(u6, u), (u6, v), (uv2, u3), (uv3, u), (uv3, v), (uv2, v3), (v6, u), (v6, v)])
-    sums = fr.reduce_sum(fr.mul(w, torch.stack(raws, 1)), 2)  # (8, 8, G)
+    return torch.stack(muls([(u6, u), (u6, v), (uv2, u3), (uv3, u), (uv3, v), (uv2, v3), (v6, u), (v6, v)]), 1)
+
+
+def gruen_acc(s: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor, ark: torch.Tensor) -> torch.Tensor:
+    """Gruen cipher round: s (8, G*n/2) suffix eq weights, x0, x1 (8, G*n),
+    ark (8, G) -> Q (8, 8, G), Q_m = C(7,m) * sum_y S[y] u^(7-m) v^m with
+    u = x0[y] + x1[y] + ark, v = x0[y+n/2] + x1[y+n/2] + ark - u."""
+    g = ark.shape[-1]
+    _expect("gruen_acc", ark, (L, g))
+    half = _round_geometry("gruen_acc", [x0, x1], g)
+    _expect("gruen_acc", s, (L, g * half))
+    if _on_cpu("gruen_acc", s, x0, x1, ark):
+        return gruen_acc_plain(s, x0, x1, ark)
+    binom_rows = _binom7(s.device).T.contiguous()
+    return _round_sums("gruen_acc", "gkr_gruen_acc", 8, g, half, [s, x0, x1, ark, binom_rows])
+
+
+def gruen_acc_plain(s, x0, x1, ark):
+    g = ark.shape[-1]
+    raws = _cipher_raws(*_cipher_line(x0, x1, ark, g))  # (8, 8, G, half)
+    sums = fr.reduce_sum(fr.mul(s.reshape(L, 1, g, -1), raws), 2)  # (8, 8, G)
     return fr.mul(sums, _binom7(s.device).reshape(L, 8, 1))
+
+
+def cipher_coeff_acc(eq: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor, ark: torch.Tensor,
+                     g: int) -> torch.Tensor:
+    """Direct cipher round in coefficient form: eq, x0, x1 (8, G*n), ark
+    (8, G) -> P (8, 9, G). With e = eq_bot, de = eq_top - e and u, v as in
+    ``gruen_acc``, P(t) = (e + t de) (u + t v)^7 summed over the half cube:
+    P_m = <e, C(7,m) raw_m> + <de, C(7,m-1) raw_(m-1)>, raw_k = u^(7-k) v^k."""
+    _expect("cipher_coeff_acc", ark, (L, g))
+    half = _round_geometry("cipher_coeff_acc", [eq, x0, x1], g)
+    if _on_cpu("cipher_coeff_acc", eq, x0, x1, ark):
+        return cipher_coeff_acc_plain(eq, x0, x1, ark, g)
+    return _round_sums("cipher_coeff_acc", "gkr_cipher_coeff_acc", 9, g, half, [eq, x0, x1, ark])
+
+
+def cipher_coeff_acc_plain(eq, x0, x1, ark, g):
+    raws = _cipher_raws(*_cipher_line(x0, x1, ark, g)).unbind(1)
+    scaled = torch.stack([fr.mul_small(raw, math.comb(7, k)) for k, raw in enumerate(raws)], 1)
+    eb, et = _halves(eq, g)
+    e_sums = fr.reduce_sum(fr.mul(eb.unsqueeze(1), scaled), 2)  # (8, 8, G)
+    de_sums = fr.reduce_sum(fr.mul(fr.sub(et, eb).unsqueeze(1), scaled), 2)
+    zero = fr.zeros((1, g), eq.device)
+    return fr.add(torch.cat([e_sums, zero], 1), torch.cat([zero, de_sums], 1))
 
 
 def identity_acc(eq: torch.Tensor, x: torch.Tensor, g: int) -> torch.Tensor:
     """Identity round in coefficient form: eq, x (8, G*n) -> P (8, 3, G)
     with e = eq_bot, de = eq_top - e, u = x_bot, v = x_top - u:
     P0 = <e,u>, P1 = <e,v> + <de,u>, P2 = <de,v>."""
-    total = eq.shape[-1]
-    _expect("identity_acc", eq, (L, total))
-    _expect("identity_acc", x, (L, total))
-    half = _group_size("identity_acc", total, g, 2) // 2
+    half = _round_geometry("identity_acc", [eq, x], g)
     if _on_cpu("identity_acc", eq, x):
         return identity_acc_plain(eq, x, g)
-    bpg = _blocks_per_group(half, g)
-    partial = _empty((g * bpg, 3, L), eq)
-    out = _empty((L, 3, g), eq)
-    _launch("identity_acc", "gkr_identity_acc", eq.device,
-            _ptr(eq), _ptr(x), _ptr(partial), _ptr(out), half, g, bpg)
-    return out
+    return _round_sums("identity_acc", "gkr_identity_acc", 3, g, half, [eq, x])
 
 
 def identity_acc_plain(eq, x, g):
@@ -368,6 +434,70 @@ def identity_acc_plain(eq, x, g):
     eu, ev, deu, dev = fr.mul(torch.stack([e, e, de, de], 1), torch.stack([u, v, u, v], 1)).unbind(1)
     terms = torch.stack([eu, fr.add(ev, deu), dev], 1)  # (8, 3, G, half)
     return fr.reduce_sum(terms, 2)
+
+
+# ---------------------------------------------------------------------------
+# Round sums in evaluation form
+# ---------------------------------------------------------------------------
+
+CIPHER_EVALS = 9  # the cipher gate's degree 7, plus 2
+IDENTITY_EVALS = 3
+
+
+def stack_t(tables: torch.Tensor, n_evals: int, skip_t0: bool = False) -> torch.Tensor:
+    """(8, T, G, 2m) -> (8, T, n_out, G, m): the restriction of each table
+    to the leading variable at t = 0 (unless skip_t0), 1, ..., n_evals - 1,
+    by repeated adds of (top - bot)."""
+    m = tables.shape[-1] // 2
+    bot, top = tables[..., :m], tables[..., m:]
+    d = fr.sub(top, bot)
+    rows = [bot, top]
+    for _ in range(n_evals - 2):
+        rows.append(fr.add(rows[-1], d))
+    return torch.stack(rows[1:] if skip_t0 else rows, dim=2)
+
+
+def _check_evals(name: str, n_evals: int, want: int) -> None:
+    if n_evals != want:
+        raise ValueError(f"{name}: n_evals {n_evals}, expected {want} (the gate's degree + 2)")
+
+
+def cipher_partial_evals(eq: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor, ark: torch.Tensor,
+                         g: int, n_evals: int, skip_t0: bool) -> torch.Tensor:
+    """Cipher round in evaluation form: eq, x0, x1 (8, G*n), ark (8, G) ->
+    (8, n_evals - skip_t0, G), column t the sum over the half cube of
+    eq_t * (x0_t + x1_t + ark)^7, a_t = a_bot + t (a_top - a_bot), at
+    t = 0..n_evals-1 (1..n_evals-1 with skip_t0: the claim trick)."""
+    _check_evals("cipher_partial_evals", n_evals, CIPHER_EVALS)
+    _expect("cipher_partial_evals", ark, (L, g))
+    half = _round_geometry("cipher_partial_evals", [eq, x0, x1], g)
+    if _on_cpu("cipher_partial_evals", eq, x0, x1, ark):
+        return cipher_partial_evals_plain(eq, x0, x1, ark, g, n_evals, skip_t0)
+    return _round_sums("cipher_partial_evals", "gkr_cipher_partial_evals", n_evals - bool(skip_t0), g,
+                       half, [eq, x0, x1, ark], n_evals, int(bool(skip_t0)))
+
+
+def cipher_partial_evals_plain(eq, x0, x1, ark, g, n_evals, skip_t0):
+    e, u, w = stack_t(torch.stack([eq, x0, x1], 1).reshape(L, 3, g, -1), n_evals, skip_t0).unbind(1)
+    gate = fr.pow7(fr.add(fr.add(w, ark.reshape(L, 1, g, 1)), u))
+    return fr.reduce_sum(fr.mul(e, gate), 2)  # (8, n_out, G)
+
+
+def identity_partial_evals(eq: torch.Tensor, x: torch.Tensor, g: int, n_evals: int,
+                           skip_t0: bool) -> torch.Tensor:
+    """Identity round in evaluation form: eq, x (8, G*n) ->
+    (8, n_evals - skip_t0, G), column t the sum of eq_t * x_t."""
+    _check_evals("identity_partial_evals", n_evals, IDENTITY_EVALS)
+    half = _round_geometry("identity_partial_evals", [eq, x], g)
+    if _on_cpu("identity_partial_evals", eq, x):
+        return identity_partial_evals_plain(eq, x, g, n_evals, skip_t0)
+    return _round_sums("identity_partial_evals", "gkr_identity_partial_evals", n_evals - bool(skip_t0), g,
+                       half, [eq, x], n_evals, int(bool(skip_t0)))
+
+
+def identity_partial_evals_plain(eq, x, g, n_evals, skip_t0):
+    e, u = stack_t(torch.stack([eq, x], 1).reshape(L, 2, g, -1), n_evals, skip_t0).unbind(1)
+    return fr.reduce_sum(fr.mul(e, u), 2)
 
 
 # ---------------------------------------------------------------------------
@@ -427,7 +557,11 @@ PLAIN = {
     "fold": fold_plain,
     "suffix_step": suffix_step_plain,
     "multi_eq": multi_eq_plain,
+    "mul_scalar": mul_scalar_plain,
     "gruen_acc": gruen_acc_plain,
+    "cipher_coeff_acc": cipher_coeff_acc_plain,
     "identity_acc": identity_acc_plain,
+    "cipher_partial_evals": cipher_partial_evals_plain,
+    "identity_partial_evals": identity_partial_evals_plain,
     "gruen_round_scalar": gruen_round_scalar_plain,
 }

@@ -34,13 +34,19 @@ def evaluate(table: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return t[:, 0]
 
 
+MUL_SCALAR_MIN = 512  # doubling steps on tables this large multiply through the kernel
+
+
 def eq_table(qprime: torch.Tensor, multiplier=None) -> torch.Tensor:
     """out[x] = mult * prod_i eq1(q_i, bit_i(x)), bit 0 the MSB:
-    qprime (n, 8) rows -> (8, 2**n). Doubling with interleave."""
+    qprime (n, 8) rows -> (8, 2**n). Doubling with interleave; as the
+    reference (gkr_mimc_tpu/poly/multilin.py:58-80), a step on a table of at
+    least MUL_SCALAR_MIN entries multiplies through ``ops.kernels.mul_scalar``."""
     t = fr.one((), qprime.device) if multiplier is None else multiplier
     t = t.reshape(L, 1)
     for i in range(qprime.shape[0]):
-        rt = fr.mul(t, qprime[i].reshape(L, 1))
+        q = qprime[i].contiguous()
+        rt = K.mul_scalar(t, q) if t.shape[-1] >= MUL_SCALAR_MIN else fr.mul(t, q.reshape(L, 1))
         t = torch.stack([fr.sub(t, rt), rt], dim=-1).reshape(L, -1)
     return t
 

@@ -13,22 +13,29 @@ single-instance proof of that lane's inputs. Internally a single instance
 is the grouped case with G = 1; the kernels take group-major (8, G*n)
 views of the tables.
 
-Round selection follows the reference's kernel path
-(gkr_mimc_tpu/sumcheck/prover.py:217-228, 276-437), by gate:
+Head rounds (tables larger than 2**tail_bits) of a cipher gate over 2
+tables or an identity gate over 1 table run on the kernels. ``rounds``
+picks among the reference's three round paths, which its environment
+switches select (gkr_mimc_tpu/sumcheck/prover.py:243-252, 440-471):
 
-* a cipher gate over 2 tables with one claim runs Gruen-factored head
-  rounds (suffix eq tables, ``ops.kernels.gruen_acc``, the fused round
-  stage ``ops.kernels.gruen_round_scalar``, the fold of x0 and x1) while
-  the tables are larger than 2**tail_bits;
-* an identity gate over 1 table runs coefficient-form head rounds
-  (``ops.kernels.identity_acc``) on the eq table of ``_make_eq``;
-* everything else, and every table of at most 2**tail_bits entries, takes
-  the generic evaluation-form round in plain torch field ops (the
-  reference leaves these to XLA).
+* ``"gruen"`` (the reference's defaults): a single-claim cipher layer runs
+  Gruen-factored head rounds (suffix eq tables, ``ops.kernels.gruen_acc``,
+  the fused round stage ``ops.kernels.gruen_round_scalar``, the fold of
+  x0 and x1); every other layer runs coefficient-form head rounds on the
+  eq table of ``_make_eq`` (``ops.kernels.cipher_coeff_acc`` or
+  ``identity_acc``, the hash, one fold of eq and the tables);
+* ``"coeff"`` (GKR_GRUEN=0): coefficient-form head rounds in every layer;
+* ``"evals"`` (GKR_COEFF_PE=0): evaluation-form head rounds
+  (``ops.kernels.cipher_partial_evals`` or ``identity_partial_evals``,
+  interpolation, the hash, the fold) with the claim trick: the round sums
+  skip t = 0 and P(0) = claim - P(1), the claim carried from round to
+  round as P(r); a layer without claims (the output layer) computes its
+  first round at every t.
 
-Every multi-claim layer builds its eq table per lane with the single-pass
-hi/lo contraction (``ops.kernels.multi_eq``). Transcripts do not depend on
-the split: all paths compute the same round polynomial exactly.
+Every other gate, and every table of at most 2**tail_bits entries, takes
+the generic evaluation-form round in plain torch field ops (the reference
+leaves these to XLA). Transcripts do not depend on the path or the split:
+all paths compute the same round polynomials exactly.
 
 The reference runs its tail rounds at a fixed, masked table size so one
 compiled program serves every round; PyTorch runs eagerly, so the tail
@@ -51,6 +58,8 @@ from ..poly import lagrange, multilin
 
 TAIL_BITS = 8  # tables of at most 2**TAIL_BITS entries take generic rounds
 LO_BITS = 10  # low variables of the multi-claim eq factorization
+MULTI_EQ_MIN_BITS = 13  # single-claim eq tables this large take the hi/lo contraction
+ROUNDS = ("gruen", "coeff", "evals")
 
 
 @dataclass
@@ -83,27 +92,52 @@ def _challenge(coeffs: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _rlc_multipliers(claims: torch.Tensor) -> torch.Tensor:
+    """rlc^j, j = 0..J-1, per lane with rlc = MimcHash(the lane's claims):
+    claims (8, J, G) -> (8, max(J, 1), G). One claim, or none (the output
+    layer), takes no hash (the reference computes none: its value would
+    never reach the transcript)."""
+    j, g = claims.shape[1], claims.shape[2]
+    ms = fr.one((1, g), claims.device)  # rlc^0 .. rlc^(2^s - 1)
+    if j <= 1:
+        return ms
+    power = _challenge(claims).reshape(L, 1, g)  # rlc^(2^s)
+    while ms.shape[1] < j:
+        ms = torch.cat([ms, fr.mul(ms, power)], dim=1)
+        power = fr.mul(power, power)
+    return ms[:, :j]
+
+
 def _make_eq(qprimes: torch.Tensor, claims: torch.Tensor, lo_bits: int) -> torch.Tensor:
     """Combined eq table sum_j rlc^j eq(q_j, x) with rlc = MimcHash(claims)
     (no rlc for one claim): qprimes (J, bn, 8), claims (8, J) -> (8, 2**bn).
 
-    Multi-claim: eq(q, x) = eq(q_hi, x_hi) * eq(q_lo, x_lo), so the table is
-    one contraction of tiny per-claim hi tables (multipliers folded in) with
-    per-claim lo tables over the last min(bn, lo_bits) variables
-    (gkr_mimc_tpu/sumcheck/prover.py:161-193)."""
+    As the reference (gkr_mimc_tpu/sumcheck/prover.py:122-193): one claim
+    below 2**13 entries takes the doubling build of ``multilin.eq_table``;
+    otherwise eq(q, x) = eq(q_hi, x_hi) * eq(q_lo, x_lo), so the table is
+    one contraction of tiny per-claim hi tables (multipliers folded in, one
+    for a single claim) with per-claim lo tables over the last
+    min(bn, lo_bits) variables."""
     j, bn = qprimes.shape[0], qprimes.shape[1]
-    if j == 1:
+    if j == 1 and bn < MULTI_EQ_MIN_BITS:
         return multilin.eq_table(qprimes[0])
-    rlc = mimc_hash_device(claims)
-    ms = fr.one((1,), qprimes.device)  # rlc^0 .. rlc^(2^s - 1)
-    power = rlc  # rlc^(2^s)
-    while ms.shape[1] < j:
-        ms = torch.cat([ms, fr.mul(ms, power.reshape(L, 1))], dim=1)
-        power = fr.mul(power, power)
+    ms = _rlc_multipliers(claims.unsqueeze(-1))[..., 0]
     hi_bits = bn - min(bn, lo_bits)
-    hi = multilin.eq_table_grouped(qprimes[:, :hi_bits].transpose(0, 1), multiplier=ms[:, :j])
+    hi = multilin.eq_table_grouped(qprimes[:, :hi_bits].transpose(0, 1), multiplier=ms)
     lo = multilin.eq_table_grouped(qprimes[:, hi_bits:].transpose(0, 1))
     return K.multi_eq(hi.permute(2, 0, 1).contiguous(), lo.contiguous())
+
+
+def _combined_claim(claims: torch.Tensor):
+    """The RLC-combined claimed sum per lane, claim_0 + sum_{j>=1} rlc^j
+    claim_j with the multipliers of ``_make_eq`` (reference :535-556):
+    claims (8, J, G) -> (8, G); None without claims (the output layer)."""
+    j = claims.shape[1]
+    if j == 0:
+        return None
+    if j == 1:
+        return claims[:, 0]
+    return fr.reduce_sum(fr.mul(_rlc_multipliers(claims), claims), 0)
 
 
 def _make_eq_lanes(qprimes: torch.Tensor, claims: torch.Tensor, lo_bits: int) -> torch.Tensor:
@@ -121,26 +155,13 @@ def _make_eq_lanes(qprimes: torch.Tensor, claims: torch.Tensor, lo_bits: int) ->
 # ---------------------------------------------------------------------------
 
 
-def _stack_t(tables: torch.Tensor, n_evals: int) -> torch.Tensor:
-    """(8, T, G, 2m) -> (8, T, n_evals, G, m): the restriction of each
-    table to the leading variable at t = 0, 1, ..., n_evals - 1, by
-    repeated adds of (top - bot)."""
-    m = tables.shape[-1] // 2
-    bot, top = tables[..., :m], tables[..., m:]
-    d = fr.sub(top, bot)
-    rows = [bot, top]
-    for _ in range(n_evals - 2):
-        rows.append(fr.add(rows[-1], d))
-    return torch.stack(rows, dim=2)
-
-
 def _generic_round(gate: Gate, params, eq, xs):
     """Evaluation-form round on (8, G, n) tables: evaluations at
     t = 0..deg+1, interpolation, challenge, plain folds. Returns
     (eq, xs, coeffs (8, deg+2, G), r (8, G))."""
     n_evals = gate.degree + 2
     tables = torch.stack([eq] + list(xs), dim=1)  # (8, 1 + k, G, n)
-    at_t = _stack_t(tables, n_evals)
+    at_t = K.stack_t(tables, n_evals)
     g = gate.eval_batch(params, list(at_t[:, 1:].unbind(1)))
     evals = fr.reduce_sum(fr.mul(at_t[:, 0], g), 2)  # (8, n_evals, G)
     coeffs = lagrange.interpolate_on_range_device(evals)
@@ -149,15 +170,53 @@ def _generic_round(gate: Gate, params, eq, xs):
     return folded[0], list(folded[1:]), coeffs, r
 
 
-def _identity_round(eq, x):
-    """Coefficient-form identity round (gkr_mimc_tpu/sumcheck/prover.py:
-    416-437) on (8, G, n) tables: P0..P2 from the kernel, challenge, fold
-    of eq and x."""
+def _fold_all(flat: list, r: torch.Tensor, g: int):
+    """One fold launch over [eq] + xs (group-major) -> (eq, xs) as
+    (8, G, n/2) tables."""
+    folded = [t.reshape(L, g, -1) for t in K.fold(flat, r)]
+    return folded[0], folded[1:]
+
+
+def _coeff_round(kind: str, ark, eq, xs):
+    """Coefficient-form head round (gkr_mimc_tpu/sumcheck/prover.py:
+    404-437) on (8, G, n) tables: P_0..P_deg+1 from the kernel, challenge,
+    one fold of eq and the tables."""
     g = eq.shape[1]
-    coeffs = K.identity_acc(eq.reshape(L, -1), x.reshape(L, -1), g)  # (8, 3, G)
+    flat = [t.reshape(L, -1) for t in [eq] + xs]
+    if kind == "cipher":
+        coeffs = K.cipher_coeff_acc(*flat, ark, g)  # (8, 9, G)
+    else:
+        coeffs = K.identity_acc(*flat, g)  # (8, 3, G)
     r = _challenge(coeffs)
-    eq, x = K.fold([eq.reshape(L, -1), x.reshape(L, -1)], r)
-    return eq.reshape(L, g, -1), x.reshape(L, g, -1), coeffs, r
+    eq, xs = _fold_all(flat, r, g)
+    return eq, xs, coeffs, r
+
+
+def _with_t0(evals, claim):
+    """Prepend P(0) = claim - P(1) to evaluations at t = 1.. (the claim
+    trick, reference :231-240); no claim: the evaluations start at t = 0."""
+    if claim is None:
+        return evals
+    return torch.cat([fr.sub(claim, evals[:, 0]).unsqueeze(1), evals], dim=1)
+
+
+def _evals_round(kind: str, n_evals: int, ark, eq, xs, claim):
+    """Evaluation-form head round (reference :450-471) on (8, G, n)
+    tables: the round sums at t = 1..deg+1 (t = 0.. without a claim),
+    P(0) from the claim, interpolation, challenge, the next claim P(r), one
+    fold. Returns (eq, xs, coeffs, r, next claim)."""
+    g = eq.shape[1]
+    skip = claim is not None
+    flat = [t.reshape(L, -1) for t in [eq] + xs]
+    if kind == "cipher":
+        evals = K.cipher_partial_evals(*flat, ark, g, n_evals, skip)
+    else:
+        evals = K.identity_partial_evals(*flat, g, n_evals, skip)
+    coeffs = lagrange.interpolate_on_range_device(_with_t0(evals, claim))  # (8, deg+2, G)
+    r = _challenge(coeffs)
+    claim = lagrange.eval_univariate_device(coeffs, r)
+    eq, xs = _fold_all(flat, r, g)
+    return eq, xs, coeffs, r, claim
 
 
 def _suffix_tables(qcols: torch.Tensor, n_head: int) -> list:
@@ -174,7 +233,7 @@ def _suffix_tables(qcols: torch.Tensor, n_head: int) -> list:
     return [out[k] for k in range(n_head)]
 
 
-def _gruen_head(params, xs, q, n_head, coeffs_out, rs_out):
+def _gruen_head(ark, xs, q, n_head, coeffs_out, rs_out):
     """Gruen-factored head rounds of a single-claim cipher layer
     (gkr_mimc_tpu/sumcheck/prover.py:332-398, fused round stage):
     eq(q, (r_<k, t, y)) = c_k * eq1(q_k, t) * S_k[y], so each round
@@ -189,7 +248,6 @@ def _gruen_head(params, xs, q, n_head, coeffs_out, rs_out):
     one = fr.one((n_head, g), q.device)
     alphas = fr.sub(one, qk).permute(1, 0, 2).contiguous()  # (n_head, 8, G)
     betas = fr.sub(fr.add(qk, qk), one).permute(1, 0, 2).contiguous()
-    ark = params[0].reshape(L, 1).expand(L, g).contiguous()
     ck = fr.one((g,), q.device)
     x0, x1 = xs
     for k in range(n_head):
@@ -230,13 +288,18 @@ def _package(coeffs, rs, eq, xs, n_evals: int, grouped: bool) -> SumcheckProof:
 
 
 def prove(xs: list, qprimes: torch.Tensor, claims, gate: Gate,
-          tail_bits: int = TAIL_BITS, lo_bits: int = LO_BITS) -> SumcheckProof:
+          tail_bits: int = TAIL_BITS, lo_bits: int = LO_BITS, rounds: str = "gruen") -> SumcheckProof:
     """Single instance: xs tables (8, 2**bn); qprimes (J, bn, 8) evaluation
     points; claims (8, J) claimed values (used only for the Fiat-Shamir
     RLC), or None for the output layer (then J = 1).
 
     Grouped: xs (8, G, 2**bn); qprimes (J, bn, G, 8); claims (8, J, G) or
-    None. The proof tensors gain a G axis before the limb axis."""
+    None. The proof tensors gain a G axis before the limb axis.
+
+    rounds: the head-round path, one of ``ROUNDS`` (module docstring); the
+    proof does not depend on it."""
+    if rounds not in ROUNDS:
+        raise ValueError(f"rounds={rounds!r}, expected one of {ROUNDS}")
     grouped = qprimes.dim() == 4
     j, bn = qprimes.shape[0], qprimes.shape[1]
     g = qprimes.shape[2] if grouped else 1
@@ -255,18 +318,23 @@ def prove(xs: list, qprimes: torch.Tensor, claims, gate: Gate,
         claims = fr.zeros((0, g), device)
     params = gate.params(device)
     kind = _kernel_kind(gate, xs)
+    ark = params[0].reshape(L, 1).expand(L, g).contiguous() if kind == "cipher" else None
     coeffs, rs = [], []
-    if kind == "cipher" and j == 1 and bn > tail_bits:
+    if rounds == "gruen" and kind == "cipher" and j == 1 and bn > tail_bits:
         flat = [x.reshape(L, g * n) for x in xs]
-        eq, xs = _gruen_head(params, flat, qprimes[0], bn - tail_bits, coeffs, rs)
+        eq, xs = _gruen_head(ark, flat, qprimes[0], bn - tail_bits, coeffs, rs)
     else:
         eq = _make_eq_lanes(qprimes, claims, lo_bits)
         xs = [x.reshape(L, g, n) for x in xs]
-        while kind == "identity" and eq.shape[-1] > 1 << tail_bits:
-            eq, x, c, r = _identity_round(eq, xs[0])
-            xs = [x]
-            coeffs.append(c)
-            rs.append(r)
+        if kind is not None and bn > tail_bits:
+            claim = _combined_claim(claims) if rounds == "evals" else None
+            while eq.shape[-1] > 1 << tail_bits:
+                if rounds == "evals":
+                    eq, xs, c, r, claim = _evals_round(kind, gate.degree + 2, ark, eq, xs, claim)
+                else:
+                    eq, xs, c, r = _coeff_round(kind, ark, eq, xs)
+                coeffs.append(c)
+                rs.append(r)
     while eq.shape[-1] > 1:
         eq, xs, c, r = _generic_round(gate, params, eq, xs)
         coeffs.append(c)

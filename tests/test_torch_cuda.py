@@ -39,13 +39,22 @@ def _cases(rng, dev):
         "mimc_witness": [(r(1), r(1), arks), (r(300), r(300), arks)],
         "mimc_hash": [(r(1),), (r(9),), (r(130),)],
         "mimc_hash_g": [(r(9, 1),), (r(3, 70),)],
-        "fold": [([r(2)], r(1)), ([r(3 * 64), r(3 * 64)], r(3)), ([r(600 * 4)] * 4, r(600))],
+        "fold": [([r(2)], r(1)), ([r(3 * 64), r(3 * 64)], r(3)), ([r(600 * 4)] * 4, r(600)),
+                 ([r(4 * 1024) for _ in range(3)], r(4))],
         "suffix_step": [(r(1), r(1)), (r(3 * 32), r(3)), (r(1 << 12), r(1))],
         "multi_eq": [(r(1, 1).permute(1, 0, 2).contiguous(), r(1, 2)),
-                     (r(5, 91).permute(1, 0, 2).contiguous(), r(91, 64))],
+                     (r(5, 91).permute(1, 0, 2).contiguous(), r(91, 64)),
+                     (r(8, 1).permute(1, 0, 2).contiguous(), r(1, 1024))],
+        "mul_scalar": [(r(1), r(1)[:, 0].contiguous()), (r(700), r(1)[:, 0].contiguous())],
         "gruen_acc": [(r(1), r(2), r(2), r(1)), (r(3 * 512), r(3 * 1024), r(3 * 1024), r(3)),
                       (r(1 << 15), r(1 << 16), r(1 << 16), r(1))],
+        "cipher_coeff_acc": [(r(2), r(2), r(2), r(1), 1), (r(3 * 1024), r(3 * 1024), r(3 * 1024), r(3), 3),
+                             (r(1 << 16), r(1 << 16), r(1 << 16), r(1), 1)],
         "identity_acc": [(r(2), r(2), 1), (r(3 * 1024), r(3 * 1024), 3), (r(1 << 16), r(1 << 16), 1)],
+        "cipher_partial_evals": [(r(2), r(2), r(2), r(1), 1, 9, False), (r(4 * 512), r(4 * 512), r(4 * 512), r(4), 4, 9, True),
+                                 (r(1 << 16), r(1 << 16), r(1 << 16), r(1), 1, 9, True)],
+        "identity_partial_evals": [(r(2), r(2), 1, 3, True), (r(4 * 512), r(4 * 512), 4, 3, False),
+                                   (r(1 << 16), r(1 << 16), 1, 3, True)],
         "gruen_round_scalar": [(r(8, 1), r(1), r(1), r(1), r(1)), (r(8, 3), r(3), r(3), r(3), r(3)),
                                (r(8, 70), r(70), r(70), r(70), r(70))],
     }

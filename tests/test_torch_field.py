@@ -78,6 +78,18 @@ def test_ops_stay_lazy_and_agree_across_paths():
     assert fr.limb_values(fr.canonicalize(big_mul)) == [v % P for v in fr.limb_values(big_mul)]
 
 
+@pytest.mark.parametrize("c", [1, 7, 21, 35])
+def test_mul_small_is_the_held_multiple_mod_2p(c):
+    """c * a by doubling and adding: the held integer c * a mod 2p, the
+    same bits on the host-int and the torch limb paths (the binomial
+    scaling of cipher_coeff_acc)."""
+    vals = _lazy_ints(100, 6)
+    a = fr._limb_tensor(vals)
+    want = [c * v % (2 * P) for v in vals]
+    assert fr.limb_values(fr.mul_small(a, c)) == want
+    assert fr.limb_values(fr.mul_small(a[:, :40], c)) == want[:40]
+
+
 def test_reduce_sum_matches_host_sums():
     vals = _lazy_ints(3 * 37, 5)
     t = fr._limb_tensor(vals).reshape(8, 3, 37)

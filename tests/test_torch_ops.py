@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from gkr_mimc_tpu.circuits import gates as jgates
 from gkr_mimc_tpu.fields import fr as jfr
 from gkr_mimc_tpu.hashes import mimc as jmimc
 from gkr_mimc_tpu.models.mimc import _assign_fused_jit
@@ -53,6 +54,9 @@ def jvals(a):
     return jfr.to_ints(a)
 
 
+_jfold = jax.jit(jml.fold)
+
+
 def test_witness_matches_jax():
     rng = np.random.default_rng(1)
     block, state = rand_lazy(rng, 8), rand_lazy(rng, 8)
@@ -69,11 +73,32 @@ def test_fold_matches_jax(g):
     tables = [rand_lazy(rng, g * n) for _ in range(2)]
     r = rand_lazy(rng, g)
     got = K.fold(tables, r)
-    fold = jax.jit(jml.fold)
     for t, out in zip(tables, got):
         for gi in range(g):
-            want = fold(jx(t[:, gi * n : (gi + 1) * n].contiguous()), jx(r[:, gi].contiguous()))
+            want = _jfold(jx(t[:, gi * n : (gi + 1) * n].contiguous()), jx(r[:, gi].contiguous()))
             assert vals(out[:, gi * n // 2 : (gi + 1) * n // 2].contiguous()) == jvals(want)
+
+
+def test_fold_three_tables_matches_jax():
+    """nt = 3, the fold of [eq, x0, x1] in the direct and evaluation-form
+    round paths, at two groups."""
+    rng = np.random.default_rng(12)
+    g, n = 2, 16
+    tables = [rand_lazy(rng, g * n) for _ in range(3)]
+    r = rand_lazy(rng, g)
+    got = K.fold(tables, r)
+    for t, out in zip(tables, got):
+        for gi in range(g):
+            want = _jfold(jx(t[:, gi * n : (gi + 1) * n].contiguous()), jx(r[:, gi].contiguous()))
+            assert vals(out[:, gi * n // 2 : (gi + 1) * n // 2].contiguous()) == jvals(want)
+
+
+def test_mul_scalar_matches_jax():
+    rng = np.random.default_rng(13)
+    x, r = rand_lazy(rng, 16), rand_lazy(rng, 1)[:, 0].contiguous()
+    got = K.mul_scalar(x, r)
+    assert got.shape == (L, 16)
+    assert vals(got) == jvals(jax.jit(jfr.mul)(jx(x), jx(r)[:, None]))
 
 
 def test_evaluate_and_horner_match_jax():
@@ -131,14 +156,16 @@ def _jax_round_sums(s, x0, x1, ark):
     return q, jfr.reduce_sum(terms, 1)
 
 
+_jax_round_sums_jit = jax.jit(_jax_round_sums)
+
+
 @pytest.fixture(scope="module")
 def round_case():
     rng = np.random.default_rng(5)
     g, n = 2, 16
     s, x0, x1, ark = rand_lazy(rng, g * n // 2), rand_lazy(rng, g * n), rand_lazy(rng, g * n), rand_lazy(rng, g)
-    ref = jax.jit(_jax_round_sums)
     wants = [
-        ref(*(jx(t[:, gi * m : (gi + 1) * m].contiguous()) for t, m in ((s, n // 2), (x0, n), (x1, n))), jx(ark)[:, gi])
+        _jax_round_sums_jit(*(jx(t[:, gi * m : (gi + 1) * m].contiguous()) for t, m in ((s, n // 2), (x0, n), (x1, n))), jx(ark)[:, gi])
         for gi in range(g)
     ]
     return (s, x0, x1, ark, g), wants
@@ -158,6 +185,63 @@ def test_identity_acc_matches_jax(round_case):
     assert got.shape == (L, 3, g)
     for gi, (_, p) in enumerate(wants):
         assert vals(got[:, :, gi].contiguous()) == jvals(p)
+
+
+def test_cipher_coeff_acc_matches_jax(round_case):
+    """P_m = C(7,m) <e, raw_m> + C(7,m-1) <de, raw_(m-1)>: the JAX round
+    sums Q_m of ``_jax_round_sums`` weighted by e and by de (the program
+    of ``round_case``, same shapes), added on host ints. The eq tables are
+    random: a kernel that dropped the de stream would still match where eq
+    is constant along the round variable."""
+    (_, x0, x1, ark, g), _ = round_case
+    n = x0.shape[-1] // g
+    eq = rand_lazy(np.random.default_rng(14), g * n)
+    got = K.cipher_coeff_acc(eq, x0, x1, ark, g)
+    assert got.shape == (L, 9, g)
+    for gi in range(g):
+        e, top = eq[:, gi * n : gi * n + n // 2].contiguous(), eq[:, gi * n + n // 2 : (gi + 1) * n].contiguous()
+        xs = [jx(t[:, gi * n : (gi + 1) * n].contiguous()) for t in (x0, x1)]
+        qe, _ = _jax_round_sums_jit(jx(e), *xs, jx(ark)[:, gi])
+        qde, _ = _jax_round_sums_jit(jx(fr.sub(top, e)), *xs, jx(ark)[:, gi])
+        qe, qde = jvals(qe), jvals(qde)
+        want = [(a + b) % jfr.P for a, b in zip(qe + [0], [0] + qde)]
+        assert vals(got[:, :, gi].contiguous()) == want
+
+
+@pytest.fixture(scope="module")
+def partial_evals_case():
+    """Two groups of n = 16 and the JAX package's portable round sums
+    (sumcheck.prover._partial_evals, which the TPU kernels were held equal
+    to) of each lane: the identity gate at t = 0.. and with the claim trick
+    at t = 1..; the cipher gate at t = 0.. only (its program takes ~10 s to
+    compile here), whose columns 1.. are the claim-trick sums, computed by
+    the same adds."""
+    rng = np.random.default_rng(15)
+    g, n = 2, 16
+    eq, x0, x1, ark = rand_lazy(rng, g * n), rand_lazy(rng, g * n), rand_lazy(rng, g * n), rand_lazy(rng, g)
+    cipher, ident = jgates.CipherGate(0), jgates.IdentityGate()
+    pe = jax.jit(jsp._partial_evals, static_argnums=(0, 5))
+    want = {}
+    for gi in range(g):
+        e, a0, a1 = (jx(t[:, gi * n : (gi + 1) * n].contiguous()) for t in (eq, x0, x1))
+        full = pe(cipher, (jx(ark)[:, gi],), e, [a0, a1], None, False)
+        want["cipher", gi, False], want["cipher", gi, True] = full, full[:, 1:]
+        for skip in (False, True):
+            want["identity", gi, skip] = pe(ident, (), e, [a0], None, skip)
+    return (eq, x0, x1, ark, g), want
+
+
+@pytest.mark.parametrize("skip_t0", [False, True], ids=["t0", "skip_t0"])
+def test_partial_evals_match_jax(partial_evals_case, skip_t0):
+    (eq, x0, x1, ark, g), want = partial_evals_case
+    got = {
+        "cipher": K.cipher_partial_evals(eq, x0, x1, ark, g, 9, skip_t0),
+        "identity": K.identity_partial_evals(eq, x0, g, 3, skip_t0),
+    }
+    assert got["cipher"].shape == (L, 9 - skip_t0, g) and got["identity"].shape == (L, 3 - skip_t0, g)
+    for kind, out in got.items():
+        for gi in range(g):
+            assert vals(out[:, :, gi].contiguous()) == jvals(want[kind, gi, skip_t0])
 
 
 @jax.jit
@@ -206,3 +290,11 @@ def test_wrappers_reject_bad_shapes():
         K.gruen_round_scalar(rand_lazy(rng, 8, 2), *(rand_lazy(rng, 3) for _ in range(4)))
     with pytest.raises(ValueError):
         K.gruen_round_scalar(rand_lazy(rng, 8, 2), *(rand_lazy(rng, 2) for _ in range(3)), rand_lazy(rng, 2).T)
+    with pytest.raises(ValueError):  # the cipher gate's round has 9 evaluations
+        K.cipher_partial_evals(*(rand_lazy(rng, 8) for _ in range(3)), rand_lazy(rng, 1), 1, 8, False)
+    with pytest.raises(ValueError):  # eq and x of different sizes
+        K.identity_partial_evals(rand_lazy(rng, 8), rand_lazy(rng, 4), 1, 3, True)
+    with pytest.raises(ValueError):  # 2 groups of tables, 1 group of ark
+        K.cipher_coeff_acc(*(rand_lazy(rng, 8) for _ in range(3)), rand_lazy(rng, 1), 2)
+    with pytest.raises(ValueError):
+        K.mul_scalar(rand_lazy(rng, 8), rand_lazy(rng, 2))
