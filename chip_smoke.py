@@ -9,7 +9,8 @@ nvcc per source, in parallel), then:
    the build time and nvcc's register report;
 2. every kernel against its plain torch twin on the card, bit for bit, at
    small shapes (G = 1, 2, 4; both claim-trick settings of the partial
-   evaluations; the fold at 3 tables; multi_eq at one claim) and at the
+   evaluations; the fold at 3 tables; multi_eq at one claim; the S-boxes
+   at odd sizes and at the lazy representatives' edges) and at the
    main path's shapes (timed, kernel and plain, beside the least time the
    card could take for the same work), some also at a second shape;
 3. golden transcripts: MimcHash([12]) and tests/golden/transcripts.json,
@@ -32,13 +33,23 @@ nvcc per source, in parallel), then:
 6. the grouped path, G = 4 instances at bn = --bn - 2 (as many hashes as
    the main path): inputs on the card, witness, grouped proof,
    verify_grouped, a tamper probe in lane 2 that must be named, and the
-   launch counts of that run.
+   launch counts of that run;
+8. the other circuits: GMiMC T2 (96 layers) at bn = --bn and Poseidon T2
+   (RF 8, RP 82: 397 layers) at bn = --bn - 4, each through the generic
+   witness (circuits.assign), proof, verification, a tamper probe and its
+   output table against the host permutation at 257 sampled instances,
+   timed per layer kind; a GMiMC T2 and a Poseidon (2, 2, 3) walk at
+   bn = 10 through the kernels and again through the plain twins
+   (identical proof vectors); GMiMC's full-state prover at bn = 10; and
+   the six GMiMC and Poseidon device hashers over 2^16 messages against
+   the host hash.
 
 Each path's launch counts are read from its own run, the counts set to 0
 just before it: the kernels of the default path from phase 5,
 cipher_coeff_acc from phase 7's coeff run, the partial evaluations from
-its evals run, and mul_scalar (which builds single-claim eq tables below
-2^13 entries only) from phase 4's coeff walk at bn = 12.
+its evals run, mul_scalar (which builds single-claim eq tables below
+2^13 entries only) from phase 4's coeff walk at bn = 12, and pow7 (the
+hashers' S-box) from phase 8.
 
 Prints one JSON line of per-kernel results, then the nvidia-smi line, then
 {"ok": true, "device": {...}} as the last line. Exits non-zero on any
@@ -62,13 +73,17 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from gkr_mimc_tpu_torch.circuits.circuit import assign  # noqa: E402
 from gkr_mimc_tpu_torch.fields import fr  # noqa: E402
-from gkr_mimc_tpu_torch.fields.bn254 import L  # noqa: E402
+from gkr_mimc_tpu_torch.fields.bn254 import L, P  # noqa: E402
 from gkr_mimc_tpu_torch.gadget.serialize import proof_to_vec  # noqa: E402
 from gkr_mimc_tpu_torch.gkr import prover as gkr_prover  # noqa: E402
 from gkr_mimc_tpu_torch.gkr import verifier as gkr_verifier  # noqa: E402
+from gkr_mimc_tpu_torch.hashes import gmimc as gmimc_hash  # noqa: E402
+from gkr_mimc_tpu_torch.hashes import poseidon as poseidon_hash  # noqa: E402
 from gkr_mimc_tpu_torch.hashes.ark import arks_mont  # noqa: E402
 from gkr_mimc_tpu_torch.hashes.mimc import mimc_hash, mimc_hash_device, mimc_keyed_permutation  # noqa: E402
+from gkr_mimc_tpu_torch.models import gmimc, poseidon  # noqa: E402
 from gkr_mimc_tpu_torch.models.mimc import assign_fused, mimc_circuit  # noqa: E402
 from gkr_mimc_tpu_torch.ops import build  # noqa: E402
 from gkr_mimc_tpu_torch.ops import kernels as K  # noqa: E402
@@ -113,6 +128,17 @@ def rand_lazy(rng: np.random.Generator, shape, dev) -> torch.Tensor:
     limbs = rng.integers(0, 1 << 32, size=(L,) + tuple(shape), dtype=np.uint64)
     limbs[L - 1] %= TWO_P_TOP
     return torch.from_numpy(limbs.astype(np.uint32).view(np.int32)).to(dev)
+
+
+# held integers at the edges of the lazy range [0, 2p)
+LAZY_EDGES = [0, 1, 2, P - 2, P - 1, P, P + 1, 2 * P - 2, 2 * P - 1, (1 << 255) % P, 0xFFFFFFFF, 1 << 64]
+
+
+def edge_table(values, dev) -> torch.Tensor:
+    """An (8, n) table holding the given integers (< 2p) as they are."""
+    raw = b"".join(int(x).to_bytes(4 * L, "little") for x in values)
+    limbs = np.frombuffer(raw, dtype="<u4").reshape(len(values), L).T.copy()
+    return torch.from_numpy(limbs.view(np.int32)).to(dev)
 
 
 def max_abs_err(a, b) -> int:
@@ -212,6 +238,13 @@ def kernel_cases(bn: int, dev, rng):
     def q():  # one scalar (8,)
         return r(1)[:, 0].contiguous()
 
+    edges = edge_table(LAZY_EDGES, dev)
+    redges = edge_table(LAZY_EDGES[::-1], dev)
+    # every pair of edge values as (l, r) with each edge value as ark
+    el = edge_table([x for x in LAZY_EDGES for _ in LAZY_EDGES], dev)
+    er = edge_table([y for _ in LAZY_EDGES for y in LAZY_EDGES], dev)
+    ark_edges = [edge_table([a], dev)[:, 0].contiguous() for a in LAZY_EDGES]
+
     # small cases: G = 1, 2 and 4; both claim-trick settings (skip_t0 False
     # is the output layer's full first round)
     return [
@@ -246,6 +279,11 @@ def kernel_cases(bn: int, dev, rng):
          lambda: ipe_args(1, n, True)),
         ("gruen_round_scalar", [round_args(1), round_args(2), round_args(4), round_args(2048)],
          lambda: round_args(1)),
+        ("pow7", [(r(1),), (r(3),), (r(257),), (r(100003),), (edges,), (redges,)],
+         lambda: (r(n),)),
+        ("cipher_layer", [(r(1), r(1), q()), (r(3), r(3), q()), (r(100003), r(100003), q())]
+         + [(el, er, a) for a in ark_edges],
+         lambda: (r(n), r(n), q())),
     ]
 
 
@@ -306,6 +344,12 @@ def work(name: str, args) -> tuple[int, int]:
         n_out, n_tables = n_evals - bool(skip), (3 if name.startswith("cipher") else 2)
         per_t = 5 if name.startswith("cipher") else 1  # x^7 and the eq weight, or the eq weight
         return FE * (n_tables * eq.shape[-1] + (g if n_tables == 3 else 0) + n_out * g), per_t * n_out * (eq.shape[-1] // 2)
+    if name == "pow7":  # square, mul, square, mul per element
+        n = args[0].shape[-1]
+        return FE * 2 * n, 4 * n
+    if name == "cipher_layer":
+        n = args[0].shape[-1]
+        return FE * (3 * n + 1), 4 * n
     if name == "gruen_round_scalar":
         g = args[0].shape[-1]
         # combine 16 + 9, hash 9 words x 91 rounds x 4, eq1 and ck' 2
@@ -497,11 +541,12 @@ def phase_grouped_cross_check(bn: int, g: int, dev, tail_bits: int = 2) -> None:
 
 ROUND_PATHS = ("coeff", "evals")
 # kernels each path must launch (beside the hash and the fold)
-PATH_KERNELS = {
+PATH_KERNELS = {  # cipher_layer: the cipher gate in every generic (tail) round
     "gruen": ["mimc_witness", "mimc_hash", "mimc_hash_g", "fold", "suffix_step", "multi_eq", "gruen_acc",
-              "identity_acc", "gruen_round_scalar"],
-    "coeff": ["mimc_hash", "mimc_hash_g", "fold", "multi_eq", "cipher_coeff_acc", "identity_acc"],
-    "evals": ["mimc_hash", "mimc_hash_g", "fold", "multi_eq", "cipher_partial_evals", "identity_partial_evals"],
+              "identity_acc", "gruen_round_scalar", "cipher_layer"],
+    "coeff": ["mimc_hash", "mimc_hash_g", "fold", "multi_eq", "cipher_coeff_acc", "identity_acc", "cipher_layer"],
+    "evals": ["mimc_hash", "mimc_hash_g", "fold", "multi_eq", "cipher_partial_evals", "identity_partial_evals",
+              "cipher_layer"],
 }
 
 
@@ -588,10 +633,11 @@ def expected_launches(bn: int, rounds: str) -> dict:
     schedule: 91 cipher layers and the 91-claim identity layer, each with
     max(0, bn - TAIL_BITS) head rounds and min(bn, TAIL_BITS) tail rounds;
     the verifier folds the output and the two input tables once per
-    variable."""
+    variable; each cipher layer's tail round evaluates its gate through
+    cipher_layer once."""
     head, tail = max(0, bn - sumcheck_prover.TAIL_BITS), min(bn, sumcheck_prover.TAIL_BITS)
     if rounds == "gruen":
-        return {"gruen_round_scalar": 91 * head, "mimc_hash": 92 * tail + head + 1}
+        return {"gruen_round_scalar": 91 * head, "mimc_hash": 92 * tail + head + 1, "cipher_layer": 91 * tail}
     cipher = "cipher_coeff_acc" if rounds == "coeff" else "cipher_partial_evals"
     ident = "identity_acc" if rounds == "coeff" else "identity_partial_evals"
     big = bn >= sumcheck_prover.MULTI_EQ_MIN_BITS  # single-claim eq tables by the contraction
@@ -599,7 +645,7 @@ def expected_launches(bn: int, rounds: str) -> dict:
             # the combined claim of the evals path hashes the 91 claims again
             "mimc_hash": 92 * bn + 1 + (rounds == "evals"),
             "mul_scalar": 0 if big else 91 * max(0, bn - 9), "suffix_step": 0, "gruen_acc": 0,
-            "gruen_round_scalar": 0}
+            "gruen_round_scalar": 0, "cipher_layer": 91 * tail}
 
 
 def report_launches(launches: dict, bn: int, rounds: str, what: str) -> None:
@@ -714,6 +760,213 @@ def phase_grouped(bn: int, g: int, dev, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the GMiMC and Poseidon circuits and hashers
+# ---------------------------------------------------------------------------
+
+POSEIDON_T2 = (2, 8, 82)  # t, RF, RP: the production configuration
+POSEIDON_SMALL = (2, 2, 3)
+HASHERS = [gmimc_hash.GMIMC_T2, gmimc_hash.GMIMC_T4, gmimc_hash.GMIMC_T8,
+           poseidon_hash.POSEIDON_T2, poseidon_hash.POSEIDON_T4, poseidon_hash.POSEIDON_T8]
+
+
+def stream_value(i: int) -> int:
+    """Element i of the deterministic generator's stream, on the host."""
+    return fr.limb_values(random_fr_device(1, i, "cpu"))[0]
+
+
+def sampled(n: int, count: int = 256) -> list:
+    return sorted(set(range(0, n, max(1, n // count))) | {n - 1})
+
+
+def circuit_setup(kind: str, bn: int, dev):
+    """(circuit, inputs, qprime, output oracle of instance i) of GMiMC T2
+    ("gmimc"), Poseidon T2 ("poseidon") or Poseidon (2, 2, 3) ("poseidon
+    small") at 2^bn instances: block word k is the generator's stream at
+    offset k * 2^bn, state word k at (t + k) * 2^bn (as walk_inputs, one
+    offset per word); qprime is random_fr_array(bn)."""
+    n = 1 << bn
+    t = 2
+    words = [fr.to_mont(random_fr_device(n, k * n, dev)) for k in range(2 * t)]
+
+    def host_words(i):
+        w = [stream_value(k * n + i) for k in range(2 * t)]
+        return w[:t], w[t:]
+
+    if kind == "gmimc":
+        c = gmimc.gmimc_circuit(t)
+        inputs = gmimc.gmimc_inputs(words[:t], words[t + gmimc.initial_word(t)])
+
+        def oracle(i):
+            block, state = host_words(i)
+            return gmimc.permutation_word_scalar(t, state, block)
+    else:
+        _, rf, rp = POSEIDON_T2 if kind == "poseidon" else POSEIDON_SMALL
+        c = poseidon.poseidon_circuit(t, rf, rp)
+        inputs = poseidon.poseidon_inputs(words[:t], words[t:])
+
+        def oracle(i):
+            block, state = host_words(i)
+            return poseidon.permutation_word_scalar(t, rf, rp, state, block)
+    return c, inputs, ints_to_rows(random_fr_array(bn), dev), oracle
+
+
+def n_cipher(c) -> int:
+    return sum(type(layer.gate).__name__ == "CipherGate" for layer in c)
+
+
+@contextmanager
+def layer_timer(times: dict):
+    """Seconds of every layer's sumcheck in a GKR walk, by (gate, claims),
+    with a synchronise before and after each layer."""
+    inner = sumcheck_prover.prove
+
+    def timed(xs, qprimes, claims, gate, *args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        out = inner(xs, qprimes, claims, gate, *args, **kwargs)
+        sync()
+        times.setdefault((gate.name, qprimes.shape[0]), []).append(time.perf_counter() - t0)
+        return out
+
+    sumcheck_prover.prove = timed
+    try:
+        yield
+    finally:
+        sumcheck_prover.prove = inner
+
+
+def circuit_walk(kind: str, bn: int, dev, card: str) -> dict:
+    """One circuit at 2^bn instances on the default path: generic witness,
+    proof (each layer timed), verification, tamper probe, and the output
+    table against the host permutation at 257 sampled instances."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n = 1 << bn
+    c, inputs, qprime, oracle = circuit_setup(kind, bn, dev)
+    sync()
+    t0 = time.perf_counter()
+    a = assign(c, inputs)
+    sync()
+    t1 = time.perf_counter()
+    layer_s: dict = {}
+    with layer_timer(layer_s):
+        proof = gkr_prover.prove(c, a, qprime)
+    t2 = time.perf_counter()
+    gkr_verifier.verify(c, proof, inputs, a[-1], qprime)
+    sync()
+    t3 = time.perf_counter()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    idx = sampled(n)
+    if fr.to_ints(a[-1][:, idx].contiguous()) != [oracle(i) for i in idx]:
+        raise AssertionError(f"{kind} bn={bn}: output table disagrees with the host permutation")
+    layer = len(c) // 2
+    good = proof.sumcheck_proofs[layer].coeffs
+    bad = good.clone()
+    bad[0, 0, 0] ^= 1
+    proof.sumcheck_proofs[layer].coeffs = bad
+    try:
+        gkr_verifier.verify(c, proof, inputs, a[-1], qprime)
+    except gkr_verifier.GKRError as e:
+        log(f"# {kind} bn={bn} tamper probe rejected: {e}")
+    else:
+        raise AssertionError(f"{kind} bn={bn}: a tampered proof was accepted")
+    kinds: dict = {}
+    for (gate, j), ts in sorted(layer_s.items()):
+        k = kinds.setdefault(gate, {"layers": 0, "s": 0.0})
+        k["layers"] += len(ts)
+        k["s"] += sum(ts)
+        log(f"#   {kind} layers {gate} with {j} claim(s): {len(ts)} layers, {sum(ts):.3f} s, "
+            f"{1e3 * sum(ts) / len(ts):.1f} ms a layer")
+    out = {"bn": bn, "layers": len(c), "assign_s": t1 - t0, "prove_s": t2 - t1, "verify_s": t3 - t2,
+           "hashes_per_s": n / (t2 - t0), "peak_gb": peak_gb,
+           "ms_per_layer": {g: 1e3 * k["s"] / k["layers"] for g, k in kinds.items()}}
+    log(f"# {kind} bn={bn} ({len(c)} layers) on {card}: assign {out['assign_s']:.3f} s, prove "
+        f"{out['prove_s']:.3f} s (each layer synchronised), verify {out['verify_s']:.3f} s, "
+        f"{out['hashes_per_s']:,.0f} verified hashes proven/s (assign + prove), peak memory {peak_gb:.2f} GB; "
+        f"output equal to the host permutation at {len(idx)} instances; ms a layer "
+        f"{json.dumps({g: round(v, 1) for g, v in out['ms_per_layer'].items()})}")
+    return out
+
+
+def circuits_cross_check(bn: int, dev, tail_bits: int = 2) -> int:
+    """GMiMC T2 and Poseidon (2, 2, 3) at bn through the kernels and again
+    through the plain twins: equal witnesses and proof vectors; then GMiMC's
+    full-state prover. Returns the cipher_layer launches these runs make."""
+    launches = 0
+    for kind in ("gmimc", "poseidon small"):
+        c, inputs, qprime, _ = circuit_setup(kind, bn, dev)
+        a = assign(c, inputs)
+        proof = gkr_prover.prove(c, a, qprime, tail_bits)
+        gkr_verifier.verify(c, proof, inputs, a[-1], qprime)
+        vec = proof_to_vec(c, proof)
+        with plain_twins():
+            a_plain = assign(c, inputs)
+            vec_plain = proof_to_vec(c, gkr_prover.prove(c, a_plain, qprime, tail_bits))
+        if not all(torch.equal(x, y) for x, y in zip(a, a_plain)) or vec != vec_plain:
+            raise AssertionError(f"{kind} bn={bn}: kernel and plain walks differ")
+        launches += n_cipher(c) * (1 + min(bn, tail_bits))
+        log(f"# {kind} bn={bn}, tail_bits={tail_bits}: kernel and plain witnesses and proof vectors identical "
+            f"({len(vec)} elements), verified")
+    t, n = 2, 1 << bn
+    blocks = [fr.to_mont(random_fr_device(n, k * n, dev)) for k in range(t)]
+    states = [fr.to_mont(random_fr_device(n, (t + k) * n, dev)) for k in range(t)]
+    qprime = ints_to_rows(random_fr_array(bn), dev)
+    results = gmimc.prove_full_state(t, blocks, states, qprime)
+    gmimc.verify_full_state(t, blocks, states, qprime, results)
+    idx = sampled(n, 32)
+    for w, (c, a, _) in enumerate(results):
+        launches += n_cipher(c) * (1 + min(bn, sumcheck_prover.TAIL_BITS))
+        want = [gmimc.permutation_word_scalar(t, [stream_value((t + k) * n + i) for k in range(t)],
+                                              [stream_value(k * n + i) for k in range(t)], w) for i in idx]
+        if fr.to_ints(a[-1][:, idx].contiguous()) != want:
+            raise AssertionError(f"gmimc full state bn={bn}: word {w} disagrees with the host permutation")
+    log(f"# gmimc full state t={t} bn={bn}: {t} words proven and verified, outputs equal to the host permutation")
+    return launches
+
+
+def hashers_check(dev, m: int = 1 << 16) -> int:
+    """The six device hashers over m messages of t + 3 words (two blocks)
+    against the host hash at sampled messages. Returns the expected pow7
+    launches (one a round of each block)."""
+    launches = 0
+    for h in HASHERS:
+        k = h.t + 3
+        msgs = fr.to_mont(random_fr_device(k * m, 0, dev)).reshape(L, k, m)
+        out, ms = time_once(h.hash_batch, (msgs,))
+        idx = sampled(m, 32)
+        want = [h.hash([stream_value(w * m + i) for w in range(k)]) for i in idx]
+        if fr.to_ints(out[:, idx].contiguous()) != want:
+            raise AssertionError(f"{type(h).__name__} t={h.t}: device hash_batch disagrees with the host hash")
+        rounds = h.n_rounds if hasattr(h, "n_rounds") else 2 * h.n_rounds_f + h.n_rounds_p
+        launches += rounds * -(-k // h.t)
+        log(f"# {type(h).__name__} t={h.t}: hash_batch of {m} messages of {k} words in {ms:.2f} ms, "
+            f"equal to the host hash at {len(idx)} messages")
+    return launches
+
+
+def phase_circuits(bn: int, pbn: int, dev, card: str) -> dict:
+    """Phase 8. Returns the walks' summaries and the launch counts of the
+    whole phase (counts set to 0 just before it)."""
+    K.reset_launch_counts()
+    walks = {"gmimc": circuit_walk("gmimc", bn, dev, card)}
+    walks["poseidon"] = circuit_walk("poseidon", pbn, dev, card)
+    expected_cipher = sum(n_cipher(c) * (1 + min(b, sumcheck_prover.TAIL_BITS))
+                          for c, b in ((gmimc.gmimc_circuit(2), bn), (poseidon.poseidon_circuit(*POSEIDON_T2), pbn)))
+    torch.cuda.empty_cache()
+    expected_cipher += circuits_cross_check(min(10, bn), dev)
+    expected_pow7 = hashers_check(dev)
+    launches = dict(K.LAUNCHES)
+    require_launched(launches, ["cipher_layer", "pow7", "gruen_acc", "gruen_round_scalar", "suffix_step",
+                                "cipher_coeff_acc", "identity_acc", "multi_eq", "fold", "mimc_hash", "mimc_hash_g"],
+                     "phase 8")
+    expected = {"cipher_layer": expected_cipher, "pow7": expected_pow7}
+    same = all(launches[k] == v for k, v in expected.items())
+    log(f"# launches in phase 8: {json.dumps(launches)}")
+    log(f"# expected: {json.dumps(expected)}; {'as expected' if same else 'DIFFERENT'}")
+    return {"walks": walks, "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bn", type=int, default=22, help="log2 of the hashes proven on the main path")
@@ -739,28 +992,47 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"#   ptxas {line.split('ptxas info    :')[-1].strip()}")
 
+    phase_s = {"1": time.perf_counter() - start}
+    mark = time.perf_counter()
+
+    def done(phase: str) -> None:
+        nonlocal mark
+        phase_s[phase] = phase_s.get(phase, 0.0) + time.perf_counter() - mark
+        mark = time.perf_counter()
+
     kernel_results = phase_kernels(bn, dev)  # 2.
+    done("2")
     phase_golden(dev)  # 3.
+    done("3")
     phase_cross_check(min(14, bn), dev)  # 4.
     phase_grouped_cross_check(min(12, bn - 2), 2, dev)
     small = phase_round_paths_small(min(12, bn), min(10, bn - 2), 2, dev)
+    done("4")
     main_run = phase_main(bn, dev, card)  # 5.
+    done("5")
     paths = phase_round_paths_main(bn, main_run, dev, card)  # 7., while phase 5's witness is resident
+    done("7")
     launches = main_run["launches"]
     del main_run
     phase_grouped(bn - 2, GROUPS, dev, card)  # 6.
+    done("6")
+    # 8. Poseidon's 397 layers at bn - 4: their tail rounds cost the same at every bn
+    circuits = phase_circuits(bn, bn - 4, dev, card)
+    done("8")
 
     # each kernel's launches from the run of the path that runs it
     counted_on = {"cipher_coeff_acc": ("phase 7 coeff", paths["coeff"]),
                   "cipher_partial_evals": ("phase 7 evals", paths["evals"]),
                   "identity_partial_evals": ("phase 7 evals", paths["evals"]),
-                  "mul_scalar": (f"phase 4 coeff, bn={min(12, bn)}", small["coeff"])}
+                  "mul_scalar": (f"phase 4 coeff, bn={min(12, bn)}", small["coeff"]),
+                  "pow7": ("phase 8", circuits["launches"])}
     kernels = []
     for name, (source, replaces) in K.KERNELS.items():
         where, counts = counted_on.get(name, ("phase 5", launches))
         log(f"# launches of {name}: {counts[name]} ({where})")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": counts[name], **kernel_results[name]})
+    log(f"# seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"# chip_smoke total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,12 +1,13 @@
-"""GKR prover for batched MiMC-91 hashes over BN254, in PyTorch with
-hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+"""GKR prover for batched MiMC-91 hashes over BN254, and for the GMiMC and
+Poseidon permutation circuits, in PyTorch with hand-written CUDA kernels
+for the NVIDIA H100 (sm_90a).
 
 This package is a port of ``gkr_mimc_tpu`` (JAX + Pallas on a TPU), which
 stays beside it as the reference: on the same inputs both emit the same
 round coefficients, Fiat-Shamir challenges, final claims and
 ``proof_to_vec`` wire vector. The port imports ``torch`` and numpy only,
 never ``jax`` or ``gkr_mimc_tpu``: it carries its own field constants and
-MiMC round constants.
+round constants.
 
 Field layout (a deliberate deviation from the reference):
 
@@ -26,8 +27,9 @@ Field layout (a deliberate deviation from the reference):
 
 ``utils/convert.py`` converts between the two layouts.
 
-Every Pallas kernel on the main path has a CUDA counterpart in ``csrc/``
-(built at first use by ``ops/build.py``) and a plain torch twin in
-``ops/kernels.py``. A wrapper takes the plain twin only for CPU tensors; a
-CUDA tensor goes to the kernel, or the wrapper raises.
+Every Pallas kernel of the reference's ``ops/kernels.py`` has a CUDA
+counterpart in ``csrc/`` (built at first use by ``ops/build.py``) and a
+plain torch twin in ``ops/kernels.py``. A wrapper takes the plain twin
+only for CPU tensors; a CUDA tensor goes to the kernel, or the wrapper
+raises.
 """

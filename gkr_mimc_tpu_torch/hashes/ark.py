@@ -1,4 +1,5 @@
-"""MiMC round constants as field ints and as Montgomery limb rows."""
+"""Round constants as field ints (the Arks, and the Poseidon MDS generators
+XARR and YARR) and the Arks as Montgomery limb rows."""
 
 from __future__ import annotations
 
@@ -8,9 +9,11 @@ import torch
 
 from ..fields import fr
 from ..fields.bn254 import P
-from .ark_data import ARKS
+from .ark_data import ARKS, XARR, YARR
 
 ARKS_INT = [a % P for a in ARKS]
+XARR_INT = [a % P for a in XARR]
+YARR_INT = [a % P for a in YARR]
 
 
 @lru_cache(maxsize=None)

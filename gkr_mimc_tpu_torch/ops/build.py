@@ -46,6 +46,8 @@ SIGNATURES = {
     "gkr_cipher_partial_evals": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "gkr_identity_partial_evals": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "gkr_mul_scalar": (_P, _P, _P, _I, _P),
+    "gkr_pow7": (_P, _P, _I, _P),
+    "gkr_cipher_layer": (_P, _P, _P, _P, _I, _P),
 }
 
 

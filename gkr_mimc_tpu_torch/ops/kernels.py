@@ -1,7 +1,8 @@
 """The port's CUDA kernels: one wrapper per kernel, each beside its plain
 torch twin.
 
-Every Pallas kernel that a sumcheck path of the reference reaches has a
+Every Pallas kernel of the reference's ``ops/kernels.py`` (those that its
+sumcheck paths, its witness and its circuits' gates reach) has a
 hand-written CUDA counterpart in ``csrc/`` (compiled for sm_90a by
 ``ops/build.py``):
 
@@ -22,6 +23,8 @@ identity_acc            csrc/round_acc.cu       identity_coeff_acc (:651) + fini
 cipher_partial_evals    csrc/partial_evals.cu   cipher_partial_evals (:377), cipher_partial_evals_g (:1211)
 identity_partial_evals  csrc/partial_evals.cu   identity_partial_evals (:411), identity_partial_evals_g (:1223)
 gruen_round_scalar      csrc/gruen_round.cu     gruen_round_scalar (:1446)
+pow7                    csrc/sbox.cu            pow7 (:71)
+cipher_layer            csrc/sbox.cu            cipher_layer (:89)
 ======================  ======================  ===============================================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -73,6 +76,8 @@ KERNELS = {
                                "gkr_mimc_tpu/ops/kernels.py:411 identity_partial_evals, "
                                ":1223 identity_partial_evals_g"),
     "gruen_round_scalar": ("gkr_mimc_tpu_torch/csrc/gruen_round.cu", "gkr_mimc_tpu/ops/kernels.py:1446"),
+    "pow7": ("gkr_mimc_tpu_torch/csrc/sbox.cu", "gkr_mimc_tpu/ops/kernels.py:71"),
+    "cipher_layer": ("gkr_mimc_tpu_torch/csrc/sbox.cu", "gkr_mimc_tpu/ops/kernels.py:89"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -172,6 +177,61 @@ def mimc_witness_plain(block, state, arks):
         s = fr.pow7(fr.add(fr.add(s, block), arks[r].reshape(L, 1)))
         out[r] = s
     return out
+
+
+# ---------------------------------------------------------------------------
+# S-boxes: x^7 and the cipher-gate layer
+# ---------------------------------------------------------------------------
+
+
+def _table_n(name: str, x: torch.Tensor) -> int:
+    if x.dim() != 2 or x.shape[0] != L:
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected (8, N)")
+    return x.shape[1]
+
+
+def pow7(x: torch.Tensor) -> torch.Tensor:
+    """x^7 over an (8, N) table, as square, mul, square, mul."""
+    n = _table_n("pow7", x)
+    if _on_cpu("pow7", x):
+        return pow7_plain(x)
+    out = _empty((L, n), x)
+    _launch("pow7", "gkr_pow7", x.device, _ptr(x), _ptr(out), n)
+    return out
+
+
+def pow7_plain(x):
+    return fr.pow7(x)
+
+
+def cipher_layer(l: torch.Tensor, r: torch.Tensor, ark: torch.Tensor) -> torch.Tensor:
+    """One cipher-gate layer: l, r (8, N), ark (8,) -> ((r + ark) + l)^7."""
+    n = _table_n("cipher_layer", l)
+    _expect("cipher_layer", r, (L, n))
+    _expect("cipher_layer", ark, (L,))
+    if _on_cpu("cipher_layer", l, r, ark):
+        return cipher_layer_plain(l, r, ark)
+    out = _empty((L, n), l)
+    _launch("cipher_layer", "gkr_cipher_layer", l.device, _ptr(l), _ptr(r), _ptr(ark), _ptr(out), n)
+    return out
+
+
+def cipher_layer_plain(l, r, ark):
+    return fr.pow7(fr.add(fr.add(r, ark.reshape(L, 1)), l))
+
+
+def pow7_batch(x: torch.Tensor) -> torch.Tensor:
+    """``pow7`` of an (8, *S) batch of any strides: one launch over the
+    batch flattened into a contiguous (8, N) table, reshaped back."""
+    return pow7(x.reshape(L, -1).contiguous()).view(x.shape)
+
+
+def cipher_layer_batch(l: torch.Tensor, r: torch.Tensor, ark: torch.Tensor) -> torch.Tensor:
+    """``cipher_layer`` of (8, *S) batches of any strides (broadcast to one
+    shape), flattened as ``pow7_batch`` does."""
+    l, r = torch.broadcast_tensors(l, r)
+    out = cipher_layer(l.reshape(L, -1).contiguous(), r.reshape(L, -1).contiguous(), ark.reshape(L).contiguous())
+    return out.view(l.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -564,4 +624,6 @@ PLAIN = {
     "cipher_partial_evals": cipher_partial_evals_plain,
     "identity_partial_evals": identity_partial_evals_plain,
     "gruen_round_scalar": gruen_round_scalar_plain,
+    "pow7": pow7_plain,
+    "cipher_layer": cipher_layer_plain,
 }

@@ -55,6 +55,9 @@ def _cases(rng, dev):
                                  (r(1 << 16), r(1 << 16), r(1 << 16), r(1), 1, 9, True)],
         "identity_partial_evals": [(r(2), r(2), 1, 3, True), (r(4 * 512), r(4 * 512), 4, 3, False),
                                    (r(1 << 16), r(1 << 16), 1, 3, True)],
+        "pow7": [(r(1),), (r(300),), (r(1 << 16),)],
+        "cipher_layer": [(r(1), r(1), r(1)[:, 0].contiguous()), (r(300), r(300), r(1)[:, 0].contiguous()),
+                         (r(1 << 16), r(1 << 16), r(1)[:, 0].contiguous())],
         "gruen_round_scalar": [(r(8, 1), r(1), r(1), r(1), r(1)), (r(8, 3), r(3), r(3), r(3), r(3)),
                                (r(8, 70), r(70), r(70), r(70), r(70))],
     }

@@ -21,11 +21,11 @@ import torch
 from gkr_mimc_tpu.fields import bn254 as jbn
 from gkr_mimc_tpu.fields import fr as jfr
 from gkr_mimc_tpu.hashes import ark as jark
-from gkr_mimc_tpu.hashes.ark_data import ARKS as JAX_ARKS
+from gkr_mimc_tpu.hashes import ark_data as jark_data
 from gkr_mimc_tpu.utils import common as jcommon
 from gkr_mimc_tpu_torch.fields import bn254, fr
+from gkr_mimc_tpu_torch.hashes import ark, ark_data
 from gkr_mimc_tpu_torch.hashes.ark import arks_mont
-from gkr_mimc_tpu_torch.hashes.ark_data import ARKS
 from gkr_mimc_tpu_torch.utils import common
 from gkr_mimc_tpu_torch.utils.convert import from_jax_rows, ints_to_rows, rows_to_ints, to_jax_rows
 
@@ -99,7 +99,8 @@ def test_reduce_sum_matches_host_sums():
 
 def test_constants_and_arks_match_jax():
     assert (bn254.P, bn254.R1, bn254.R2, bn254.RINV, bn254.NPRIME) == (jbn.P, jbn.R1, jbn.R2, jbn.RINV, jbn.NPRIME)
-    assert ARKS == JAX_ARKS
+    assert (ark_data.ARKS, ark_data.XARR, ark_data.YARR) == (jark_data.ARKS, jark_data.XARR, jark_data.YARR)
+    assert (ark.ARKS_INT, ark.XARR_INT, ark.YARR_INT) == (jark.ARKS_INT, jark.XARR_INT, jark.YARR_INT)
     got = from_jax_rows(np.ascontiguousarray(jark.arks_scan_tensor(91).T))
     assert torch.equal(got, arks_mont(91).T.contiguous())
 

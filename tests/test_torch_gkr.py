@@ -30,6 +30,7 @@ from gkr_mimc_tpu_torch.gkr import verifier as gkr_verifier
 from gkr_mimc_tpu_torch.hashes.ark import ARKS_INT
 from gkr_mimc_tpu_torch.hashes.mimc import mimc_keyed_permutation
 from gkr_mimc_tpu_torch.models.mimc import assign_fused, mimc_circuit
+from gkr_mimc_tpu_torch.ops import kernels as K
 from gkr_mimc_tpu_torch.utils.common import random_fr_array
 from gkr_mimc_tpu_torch.utils.convert import ints_to_rows, to_jax_rows
 
@@ -43,12 +44,17 @@ def _instance(bn):
 
 
 @pytest.mark.parametrize("tail_bits", [8, 1])
-def test_golden_proof_vector(tail_bits):
+def test_golden_proof_vector(monkeypatch, tail_bits):
+    """The golden walk, its cipher layers' generic tail rounds evaluating
+    the gate through the cipher_layer wrapper (one call a round)."""
     want = json.loads(GOLDEN.read_text())["gkr_mimc"]
     c, block, state, qprime = _instance(want["bn"])
     assert [str(v) for v in fr.to_ints(qprime.T.contiguous())] == want["qprime"]
     a = assign_fused(block, state)
+    calls = []
+    monkeypatch.setattr(K, "cipher_layer", lambda *args, _f=K.cipher_layer: calls.append(1) or _f(*args))
     proof = gkr_prover.prove(c, a, qprime, tail_bits)
+    assert len(calls) == 91 * min(want["bn"], tail_bits)
     assert [str(v) for v in fr.to_ints(a[93])] == want["outputs"]
     assert [str(v) for v in proof_to_vec(c, proof)] == want["proof_vec"]
     gkr_verifier.verify(c, proof, [block, state], a[93], qprime)
