@@ -42,14 +42,25 @@ nvcc per source, in parallel), then:
    bn = 10 through the kernels and again through the plain twins
    (identical proof vectors); GMiMC's full-state prover at bn = 10; and
    the six GMiMC and Poseidon device hashers over 2^16 messages against
-   the host hash.
+   the host hash;
+9. the probes (gkr_mimc_tpu_torch.ops.probes, the counterparts of the
+   TPU package's micro-benchmark scripts): each probe kernel against its
+   plain version at a few hundred elements (bit for bit; the f32 body of
+   op_chain to 1e-5 relative), then the five scripts' counterparts at
+   their default shapes through the probes' entry points, each timed case
+   held to its plain version before it is timed with CUDA events: 32-bit
+   op rates and the tensor-core dot (beside torch._int_mm(m, x) * reps),
+   check_mxu_mul's field check of both multiplies, the Montgomery-product
+   split, the S-box chain latency in both layouts, the partial-evals
+   multiply A/B.
 
 Each path's launch counts are read from its own run, the counts set to 0
 just before it: the kernels of the default path from phase 5,
 cipher_coeff_acc from phase 7's coeff run, the partial evaluations from
 its evals run, mul_scalar (which builds single-claim eq tables below
-2^13 entries only) from phase 4's coeff walk at bn = 12, and pow7 (the
-hashers' S-box) from phase 8.
+2^13 entries only) from phase 4's coeff walk at bn = 12, pow7 (the
+hashers' S-box) from phase 8, and the six probes from phase 9's run of
+the scripts' counterparts.
 
 Prints one JSON line of per-kernel results, then the nvidia-smi line, then
 {"ok": true, "device": {...}} as the last line. Exits non-zero on any
@@ -87,6 +98,7 @@ from gkr_mimc_tpu_torch.models import gmimc, poseidon  # noqa: E402
 from gkr_mimc_tpu_torch.models.mimc import assign_fused, mimc_circuit  # noqa: E402
 from gkr_mimc_tpu_torch.ops import build  # noqa: E402
 from gkr_mimc_tpu_torch.ops import kernels as K  # noqa: E402
+from gkr_mimc_tpu_torch.ops import probes as Pr  # noqa: E402
 from gkr_mimc_tpu_torch.sumcheck import prover as sumcheck_prover  # noqa: E402
 from gkr_mimc_tpu_torch.sumcheck import testing  # noqa: E402
 from gkr_mimc_tpu_torch.utils.common import grouped_inputs, random_fr_array, random_fr_device  # noqa: E402
@@ -101,9 +113,9 @@ GROUPS = 4  # lanes of the grouped path (phase 6)
 # 132 SMs x 64 per clock x 1.98 GHz. A CIOS Montgomery product of 8-limb
 # operands is 64 + 64 widening 32 x 32 -> 64 products (two 32-bit results
 # each) and 8 single ones: 264 results.
-HBM_BYTES_PER_S = 3.35e12
-INT_MULS_PER_S = 132 * 64 * 1.98e9
-MULS_PER_PRODUCT = 264
+HBM_BYTES_PER_S = Pr.HBM_BYTES_PER_S  # 3.35e12
+INT_MULS_PER_S = Pr.INT_RESULTS_PER_S  # 132 * 64 * 1.98e9
+MULS_PER_PRODUCT = Pr.MULS_PER_PRODUCT  # 264
 FE = 32  # bytes per field element
 
 
@@ -131,7 +143,7 @@ def rand_lazy(rng: np.random.Generator, shape, dev) -> torch.Tensor:
 
 
 # held integers at the edges of the lazy range [0, 2p)
-LAZY_EDGES = [0, 1, 2, P - 2, P - 1, P, P + 1, 2 * P - 2, 2 * P - 1, (1 << 255) % P, 0xFFFFFFFF, 1 << 64]
+LAZY_EDGES = Pr.LAZY_EDGES
 
 
 def edge_table(values, dev) -> torch.Tensor:
@@ -562,7 +574,8 @@ def phase_round_paths_small(bn: int, gbn: int, g: int, dev, tail_bits: int = 2) 
     take the doubling build through mul_scalar) and G lanes at gbn, each
     lane against the default single walk of its inputs. Small tail_bits
     put most rounds on the kernels. Returns the launch counts of each
-    path's single walk (with its verification)."""
+    path's single walk (with its verification) and, under "<path> G",
+    of each path's grouped prove."""
     c = mimc_circuit()
     block, state, qprime = walk_inputs(bn, dev)
     a = assign_fused(block, state)
@@ -589,12 +602,15 @@ def phase_round_paths_small(bn: int, gbn: int, g: int, dev, tail_bits: int = 2) 
     singles = [proof_to_vec(c, gkr_prover.prove(c, [t[:, i].contiguous() for t in a], qprime[:, i].contiguous(),
                                                  tail_bits)) for i in range(g)]
     for rounds in ROUND_PATHS:
+        K.reset_launch_counts()
         proof = gkr_prover.prove(c, a, qprime, tail_bits, rounds=rounds)
+        launches[f"{rounds} G"] = dict(K.LAUNCHES)
         if [proof_to_vec(c, gkr_verifier.slice_group(proof, i)) for i in range(g)] != singles:
             raise AssertionError(f"G={g} x bn={gbn}: a lane of the {rounds} walk differs from its single gruen walk")
         gkr_verifier.verify_grouped(c, proof, [block, state], a[93], qprime)
     log(f"# round paths G={g} x bn={gbn}, tail_bits={tail_bits}: every lane of the coeff and evals walks equals "
-        f"the gruen single walk of its inputs; verified")
+        f"the gruen single walk of its inputs; verified; launches of the grouped evals prove "
+        f"{json.dumps({k: v for k, v in launches['evals G'].items() if v})}")
     return launches
 
 
@@ -967,6 +983,85 @@ def phase_circuits(bn: int, pbn: int, dev, card: str) -> dict:
     return {"walks": walks, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the probes
+# ---------------------------------------------------------------------------
+
+
+def probe_bound(name: str, args) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations") of a probe
+    call: its 32-bit results at the data-sheet rate of their kind (int8
+    tensor-core operations for imma_dot), or its bytes."""
+    if name == "op_chain":
+        x, _, body, reps = args[:4]
+        results, rate = Pr.OP_BODIES[body]
+        nbytes, t_ops = 3 * x.numel() * 4, reps * x.numel() * results / rate
+    elif name == "imma_dot":
+        m, x, reps = args[:3]
+        n = x.shape[1]
+        nbytes, t_ops = m.numel() + x.numel() + 4 * 64 * n, 2 * reps * 64 * 32 * n / Pr.INT8_OPS_PER_S
+    elif name == "field_check":  # mul, four products of x^7, a square
+        n = args[0].shape[1]
+        nbytes, t_ops = 5 * FE * n, (5 * MULS_PER_PRODUCT + Pr.CHAIN_VARIANTS["square"]) * n / INT_MULS_PER_S
+    elif name == "mul_chain":
+        a, _, variant, chain = args[:4]
+        n = a.shape[1]
+        nbytes, t_ops = 3 * FE * n, Pr.CHAIN_VARIANTS[variant] * chain * n / INT_MULS_PER_S
+    elif name == "sbox_chain":
+        x, _, rounds = (args + (Pr.SBOX_ROUNDS,))[:3]
+        n = x.shape[1]
+        nbytes, t_ops = 2 * FE * n, 4 * rounds * MULS_PER_PRODUCT * n / INT_MULS_PER_S
+    elif name == "cipher_pe_variant":
+        eq, x0, x1, ark = args[:4]
+        return bound("cipher_partial_evals", (eq, x0, x1, ark, 1, K.CIPHER_EVALS, False))
+    else:
+        raise KeyError(name)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+def phase_probes(dev) -> dict:
+    """Phase 9. Returns per probe its row of the kernels line: launches in
+    the run of the scripts' counterparts (counts set to 0 just before it)
+    and the numbers of its representative case. Every probe call of the
+    phase is held to its plain version (Pr.check), the small cases here
+    and each timed case inside the scripts' counterparts."""
+    for name, cases in Pr.small_cases(dev).items():
+        for args in cases:
+            Pr.check(name, getattr(Pr, name)(*args), Pr.PLAIN[name](*args))
+        log(f"# probe {name}: equal to its plain version at {len(cases)} small cases")
+    Pr.reset_launch_counts()
+    runs = {"micro_ops": Pr.run_micro_ops(), "check_mxu_mul": Pr.run_check_mxu_mul(),
+            "micro_mul_split": Pr.run_micro_mul_split(), "micro_row_mul": Pr.run_micro_row_mul(),
+            "micro_pe_mxu": Pr.run_micro_pe_mxu()}
+    launches = dict(Pr.PROBE_LAUNCHES)
+    missing = [name for name, count in launches.items() if count == 0]
+    if missing:
+        raise AssertionError(f"probes not launched by the scripts' counterparts: {missing}")
+    log(f"# launches in phase 9: {json.dumps(launches)}")
+    # the representative case of each probe: the production multiply or the
+    # scripts' first body, at the scripts' default shapes
+    picked = {"op_chain": runs["micro_ops"]["u32 mul"], "imma_dot": runs["micro_ops"]["imma_dot"],
+              "field_check": runs["check_mxu_mul"]["mul"], "mul_chain": runs["micro_mul_split"]["mul"],
+              "sbox_chain": runs["micro_row_mul"]["col"], "cipher_pe_variant": runs["micro_pe_mxu"][256]}
+    rows = {}
+    for name, (ms, args) in picked.items():
+        got = getattr(Pr, name)(*args)
+        want, plain_ms = time_once(Pr.PLAIN[name], args)
+        Pr.check(name, got, want)
+        bound_ms, bound_by = probe_bound(name, args)
+        # imma_dot's function as one PyTorch call makes it: torch._int_mm(m, x) * reps
+        library_ms = runs["micro_ops"]["int_mm"][0] if name == "imma_dot" else None
+        rows[name] = {"launches": launches[name], "max_abs_err": Pr.MAX_ERR[name], "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        lib = f", torch._int_mm(m, x) * {args[2]}: {library_ms:.4f} ms" if library_ms else ""
+        log(f"# probe {name}: {ms:.4f} ms kernel vs {plain_ms:.2f} ms plain, bound {bound_ms:.6f} ms "
+            f"({bound_by}), max err {Pr.MAX_ERR[name]}{lib}")
+        del got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bn", type=int, default=22, help="log2 of the hashes proven on the main path")
@@ -989,7 +1084,7 @@ def main() -> int:
     report = Path(f"{build.library_path()}.log")
     if report.exists():
         for line in report.read_text().splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+            if line.startswith("== ") or "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"#   ptxas {line.split('ptxas info    :')[-1].strip()}")
 
     phase_s = {"1": time.perf_counter() - start}
@@ -1019,6 +1114,8 @@ def main() -> int:
     # 8. Poseidon's 397 layers at bn - 4: their tail rounds cost the same at every bn
     circuits = phase_circuits(bn, bn - 4, dev, card)
     done("8")
+    probes = phase_probes(dev)  # 9.
+    done("9")
 
     # each kernel's launches from the run of the path that runs it
     counted_on = {"cipher_coeff_acc": ("phase 7 coeff", paths["coeff"]),
@@ -1032,6 +1129,9 @@ def main() -> int:
         log(f"# launches of {name}: {counts[name]} ({where})")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": counts[name], **kernel_results[name]})
+    for name, (source, replaces) in Pr.PROBES.items():
+        log(f"# launches of {name}: {probes[name]['launches']} (phase 9)")
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, **probes[name]})
     log(f"# seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"# chip_smoke total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -31,5 +31,8 @@ Every Pallas kernel of the reference's ``ops/kernels.py`` has a CUDA
 counterpart in ``csrc/`` (built at first use by ``ops/build.py``) and a
 plain torch twin in ``ops/kernels.py``. A wrapper takes the plain twin
 only for CPU tensors; a CUDA tensor goes to the kernel, or the wrapper
-raises.
+raises. ``ops/probes.py`` ports the reference's micro-benchmark scripts
+(``scripts/micro_*.py``, ``scripts/check_mxu_mul.py``) as probe kernels
+of the card's cost model for the field arithmetic, with an entry point
+``python -m gkr_mimc_tpu_torch.ops.probes <script>``.
 """

@@ -14,6 +14,10 @@
 //   * add / sub are exact arithmetic mod 2p; mul is REDC(a*b) without the
 //     final subtraction, which maps [0, 2p) x [0, 2p) into [0, 2p) because
 //     4p < R.
+//
+// mul_ptx (inline-PTX carry chains) and square (each cross product once)
+// return mul's integers by other schedules. The probes compare them
+// (csrc/probes.cu, ops/probes.py); the prover's kernels use mul.
 #pragma once
 
 #include <cstdint>
@@ -174,6 +178,126 @@ __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) {
 #pragma unroll
   for (int j = 0; j < L; ++j) r.v[j] = t[j];
   return r;
+}
+
+// t[0..8] += a * b (a: 8 words, b: one word) as two carry chains, the low
+// halves of the eight products into t[0..7] (carry into t[8]), then the high
+// halves into t[1..8]. The caller keeps t + a * b below 2^288, so no carry
+// leaves t[8]. One asm block: the carry flag does not survive between blocks.
+__device__ __forceinline__ void mac_row_ptx(uint32_t (&t)[L + 1], const uint32_t (&a)[L], uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %9, %17, %0;\n\t"
+      "madc.lo.cc.u32 %1, %10, %17, %1;\n\t"
+      "madc.lo.cc.u32 %2, %11, %17, %2;\n\t"
+      "madc.lo.cc.u32 %3, %12, %17, %3;\n\t"
+      "madc.lo.cc.u32 %4, %13, %17, %4;\n\t"
+      "madc.lo.cc.u32 %5, %14, %17, %5;\n\t"
+      "madc.lo.cc.u32 %6, %15, %17, %6;\n\t"
+      "madc.lo.cc.u32 %7, %16, %17, %7;\n\t"
+      "addc.u32 %8, %8, 0;\n\t"
+      "mad.hi.cc.u32 %1, %9, %17, %1;\n\t"
+      "madc.hi.cc.u32 %2, %10, %17, %2;\n\t"
+      "madc.hi.cc.u32 %3, %11, %17, %3;\n\t"
+      "madc.hi.cc.u32 %4, %12, %17, %4;\n\t"
+      "madc.hi.cc.u32 %5, %13, %17, %5;\n\t"
+      "madc.hi.cc.u32 %6, %14, %17, %6;\n\t"
+      "madc.hi.cc.u32 %7, %15, %17, %7;\n\t"
+      "madc.hi.u32 %8, %16, %17, %8;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+        "+r"(t[7]), "+r"(t[8])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+        "r"(b));
+}
+
+// The same REDC(a * b) as mul, CIOS with inline-PTX carry chains
+// (mad.lo.cc / madc.hi.cc / addc) and no 64-bit accumulators: the same 264
+// 32-bit multiply results, another schedule. The m digits are unique mod R,
+// so the result is the same integer as mul's. Bounds: a, b < 2p and t < 4p
+// at the top of each step keep t + a * b_i + m * p below 2^288.
+__device__ __forceinline__ Fe mul_ptx(const Fe& a, const Fe& b) {
+  const uint32_t p[L] = {FR_P0, FR_P1, FR_P2, FR_P3, FR_P4, FR_P5, FR_P6, FR_P7};
+  uint32_t t[L + 1];
+#pragma unroll
+  for (int j = 0; j < L + 1; ++j) t[j] = 0u;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    mac_row_ptx(t, a.v, b.v[i]);
+    mac_row_ptx(t, p, t[0] * FR_NP0);  // t[0] becomes 0
+#pragma unroll
+    for (int j = 0; j < L; ++j) t[j] = t[j + 1];
+    t[L] = 0u;
+  }
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < L; ++j) r.v[j] = t[j];
+  return r;
+}
+
+// REDC of a 512-bit value t[0..15], word by word (separated operand
+// scanning): t += m_i * p * 2^(32 i) for i = 0..7 with
+// m_i = t[i] * (-p^-1) mod 2^32; the result t[8..15] is (t + m p) / R for
+// the unique m < R, the integer mul returns for the same product. The
+// caller keeps t + m p below 2^512.
+__device__ __forceinline__ Fe redc_wide(uint32_t (&t)[2 * L]) {
+  const uint32_t p[L] = {FR_P0, FR_P1, FR_P2, FR_P3, FR_P4, FR_P5, FR_P6, FR_P7};
+  uint32_t extra = 0u;  // carry owed to word i + L of the next step
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const uint32_t m = t[i] * FR_NP0;
+    uint64_t c = 0u;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const uint64_t s = static_cast<uint64_t>(t[i + j]) + static_cast<uint64_t>(m) * p[j] + c;
+      t[i + j] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
+    const uint64_t s = static_cast<uint64_t>(t[i + L]) + c + extra;
+    t[i + L] = static_cast<uint32_t>(s);
+    extra = static_cast<uint32_t>(s >> 32);
+  }
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < L; ++j) r.v[j] = t[L + j];
+  return r;
+}
+
+// a * a (512 bits) into t: each cross product a_i a_j (i < j) once, the sum
+// doubled by a one-bit shift, then the eight squares a_i^2 added in.
+__device__ __forceinline__ void square_wide(const Fe& a, uint32_t (&t)[2 * L]) {
+#pragma unroll
+  for (int k = 0; k < 2 * L; ++k) t[k] = 0u;
+#pragma unroll
+  for (int i = 0; i < L - 1; ++i) {
+    uint64_t c = 0u;
+#pragma unroll
+    for (int j = i + 1; j < L; ++j) {
+      const uint64_t s = static_cast<uint64_t>(t[i + j]) + static_cast<uint64_t>(a.v[i]) * a.v[j] + c;
+      t[i + j] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
+    t[i + L] = static_cast<uint32_t>(c);
+  }
+#pragma unroll
+  for (int k = 2 * L - 1; k > 0; --k) t[k] = (t[k] << 1) | (t[k - 1] >> 31);
+  t[0] <<= 1;
+  uint64_t c = 0u;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const uint64_t sq = static_cast<uint64_t>(a.v[i]) * a.v[i];
+    uint64_t s = static_cast<uint64_t>(t[2 * i]) + static_cast<uint32_t>(sq) + c;
+    t[2 * i] = static_cast<uint32_t>(s);
+    s = static_cast<uint64_t>(t[2 * i + 1]) + (sq >> 32) + (s >> 32);
+    t[2 * i + 1] = static_cast<uint32_t>(s);
+    c = s >> 32;
+  }
+}
+
+// REDC(a * a), the same integer as mul(a, a): 28 cross products (56
+// results) and 8 squares (16) for the product against mul's 128, then the
+// same 136-result reduction.
+__device__ __forceinline__ Fe square(const Fe& a) {
+  uint32_t t[2 * L];
+  square_wide(a, t);
+  return redc_wide(t);
 }
 
 // c * x mod 2p for a small constant c >= 1, by doubling and adding from

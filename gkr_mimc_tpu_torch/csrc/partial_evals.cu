@@ -21,6 +21,15 @@
 // the byte bound. Design: one thread per point in a grid-stride loop, the
 // n_out running sums in registers (t unrolled at compile time), a block
 // reduction and a second launch over the partials.
+//
+// The kernel is a template over its multiply and its block size: the
+// production instantiation is fr::mul at 256 threads. A second entry,
+// gkr_cipher_partial_evals_ptx, runs the cipher round on fr::mul_ptx at
+// 128, 256 or 512 threads for the multiply A/B probe (ops/probes.py, the
+// counterpart of scripts/micro_pe_mxu.py, which runs the TPU kernel with
+// its other multiply). That entry is compiled from this file by
+// csrc/partial_evals_ptx.cu (GKR_PARTIAL_EVALS_PTX defined), so its three
+// large instantiations build in parallel with the production ones.
 #include <cuda_runtime.h>
 
 #include "fr.cuh"
@@ -30,10 +39,25 @@ namespace {
 
 using rsum::kThreads;
 
+// The multiplies a round can run on: the product and the S-box x^7.
+struct MulStd {
+  __device__ __forceinline__ static fr::Fe mul(const fr::Fe& a, const fr::Fe& b) { return fr::mul(a, b); }
+  __device__ __forceinline__ static fr::Fe pow7(const fr::Fe& x) { return fr::pow7(x); }
+};
+struct MulPtx {
+  __device__ __forceinline__ static fr::Fe mul(const fr::Fe& a, const fr::Fe& b) { return fr::mul_ptx(a, b); }
+  __device__ __forceinline__ static fr::Fe pow7(const fr::Fe& x) {
+    const fr::Fe x2 = fr::mul_ptx(x, x);
+    const fr::Fe x3 = fr::mul_ptx(x2, x);
+    const fr::Fe x6 = fr::mul_ptx(x3, x3);
+    return fr::mul_ptx(x6, x);
+  }
+};
+
 // Pass 1: acc[col] += eq_t * gate(x0_t, x1_t) at t = T0 + col, where the
 // gate is (x0 + x1 + ark)^7 (CIPHER) or x0 (identity; x1 unused).
-template <int NOUT, int T0, bool CIPHER>
-__global__ void __launch_bounds__(kThreads)
+template <int NOUT, int T0, bool CIPHER, int THREADS = kThreads, typename Mul = MulStd>
+__global__ void __launch_bounds__(THREADS)
     partial_evals_kernel(const int32_t* eq, const int32_t* x0, const int32_t* x1,
                          const int32_t* ark, int32_t* partial, int64_t half, int64_t g,
                          int64_t bpg) {
@@ -44,7 +68,7 @@ __global__ void __launch_bounds__(kThreads)
   fr::Fe acc[NOUT];
 #pragma unroll
   for (int c = 0; c < NOUT; ++c) acc[c] = fr::zero();
-  for (int64_t y = bi * kThreads + threadIdx.x; y < half; y += bpg * kThreads) {
+  for (int64_t y = bi * THREADS + threadIdx.x; y < half; y += bpg * THREADS) {
     const int64_t bot = grp * 2 * half + y;
     const fr::Fe eb = fr::load(eq, n_x, bot), et = fr::load(eq, n_x, bot + half);
     const fr::Fe ub = fr::load(x0, n_x, bot), ut = fr::load(x0, n_x, bot + half);
@@ -67,17 +91,18 @@ __global__ void __launch_bounds__(kThreads)
         u = fr::add(u, du);
         if (CIPHER) w = fr::add(w, dw);
       }
-      const fr::Fe gate = CIPHER ? fr::pow7(fr::add(fr::add(w, a), u)) : u;
-      acc[c] = fr::add(acc[c], fr::mul(e, gate));
+      const fr::Fe gate = CIPHER ? Mul::pow7(fr::add(fr::add(w, a), u)) : u;
+      acc[c] = fr::add(acc[c], Mul::mul(e, gate));
     }
   }
-  rsum::store_partial<NOUT>(partial, acc);
+  rsum::store_partial<NOUT, THREADS>(partial, acc);
 }
 
-template <int NOUT, int T0, bool CIPHER>
+template <int NOUT, int T0, bool CIPHER, int THREADS = kThreads, typename Mul = MulStd>
 int launch(const void* eq, const void* x0, const void* x1, const void* ark, void* partial,
            void* out, int64_t half, int64_t g, int64_t bpg, cudaStream_t st) {
-  partial_evals_kernel<NOUT, T0, CIPHER><<<static_cast<unsigned>(g * bpg), kThreads, 0, st>>>(
+  partial_evals_kernel<NOUT, T0, CIPHER, THREADS, Mul>
+      <<<static_cast<unsigned>(g * bpg), THREADS, 0, st>>>(
       static_cast<const int32_t*>(eq), static_cast<const int32_t*>(x0),
       static_cast<const int32_t*>(x1), static_cast<const int32_t*>(ark),
       static_cast<int32_t*>(partial), half, g, bpg);
@@ -87,6 +112,8 @@ int launch(const void* eq, const void* x0, const void* x1, const void* ark, void
 bool bad_geometry(int64_t half, int64_t g, int64_t bpg) { return half <= 0 || g <= 0 || bpg <= 0; }
 
 }  // namespace
+
+#ifndef GKR_PARTIAL_EVALS_PTX
 
 // eq, x0, x1: (8, g * 2 * half); ark: (8, g); n_evals = 9 (degree 7 + 2);
 // partial: (g * bpg, n_out, 8) scratch; out: (8, n_out, g) with
@@ -111,3 +138,24 @@ extern "C" int gkr_identity_partial_evals(const void* eq, const void* x, void* p
   if (skip_t0) return launch<2, 1, false>(eq, x, nullptr, nullptr, partial, out, half, g, bpg, st);
   return launch<3, 0, false>(eq, x, nullptr, nullptr, partial, out, half, g, bpg, st);
 }
+
+#else
+
+// The cipher round of gkr_cipher_partial_evals at t = 0..8 (9 evaluations,
+// no claim trick) on fr::mul_ptx, at `threads` = 128, 256 or 512 a block:
+// the multiply A/B probe only, never the prover's path. Arguments and
+// output as gkr_cipher_partial_evals.
+extern "C" int gkr_cipher_partial_evals_ptx(const void* eq, const void* x0, const void* x1,
+                                            const void* ark, void* partial, void* out, int64_t half,
+                                            int64_t g, int64_t bpg, int64_t threads, void* stream) {
+  if (bad_geometry(half, g, bpg)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (threads) {
+    case 128: return launch<9, 0, true, 128, MulPtx>(eq, x0, x1, ark, partial, out, half, g, bpg, st);
+    case 256: return launch<9, 0, true, 256, MulPtx>(eq, x0, x1, ark, partial, out, half, g, bpg, st);
+    case 512: return launch<9, 0, true, 512, MulPtx>(eq, x0, x1, ark, partial, out, half, g, bpg, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+#endif  // GKR_PARTIAL_EVALS_PTX

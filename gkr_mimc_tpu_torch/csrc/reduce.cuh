@@ -17,7 +17,6 @@ namespace rsum {
 namespace {  // internal linkage: each source that includes this gets its own copy
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 template <int NS>
 __device__ __forceinline__ void warp_reduce(fr::Fe (&acc)[NS]) {
@@ -33,10 +32,12 @@ __device__ __forceinline__ void warp_reduce(fr::Fe (&acc)[NS]) {
   }
 }
 
-// Sum of acc over the block; valid in thread 0. Every thread must call it.
-template <int NS>
+// Sum of acc over a block of THREADS threads; valid in thread 0. Every
+// thread must call it.
+template <int NS, int THREADS = kThreads>
 __device__ __forceinline__ void block_reduce(fr::Fe (&acc)[NS]) {
-  __shared__ uint32_t part[kWarps][NS][fr::L];
+  constexpr int kBlockWarps = THREADS / 32;
+  __shared__ uint32_t part[kBlockWarps][NS][fr::L];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   warp_reduce<NS>(acc);
@@ -51,16 +52,16 @@ __device__ __forceinline__ void block_reduce(fr::Fe (&acc)[NS]) {
 #pragma unroll
     for (int s = 0; s < NS; ++s)
 #pragma unroll
-      for (int l = 0; l < fr::L; ++l) acc[s].v[l] = lane < kWarps ? part[lane][s][l] : 0u;
+      for (int l = 0; l < fr::L; ++l) acc[s].v[l] = lane < kBlockWarps ? part[lane][s][l] : 0u;
     warp_reduce<NS>(acc);
   }
 }
 
 // Block reduce, then thread 0 writes the block's NS sums to
 // partial[blockIdx.x] ((blocks, NS, 8) scratch).
-template <int NS>
+template <int NS, int THREADS = kThreads>
 __device__ __forceinline__ void store_partial(int32_t* partial, fr::Fe (&acc)[NS]) {
-  block_reduce<NS>(acc);
+  block_reduce<NS, THREADS>(acc);
   if (threadIdx.x != 0) return;
   const int64_t b = blockIdx.x;
 #pragma unroll

@@ -194,13 +194,22 @@ def _split16(a: torch.Tensor) -> torch.Tensor:
     return torch.stack([x & _M16, x >> 16], dim=1).reshape((16,) + x.shape[1:])
 
 
-def _mul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def product_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The 512-bit product a*b as 33 redundant 16-bit columns (int64, each
+    < 16 * 2**32; column 31 and 32 are 0): (33, *S)."""
     a16, b16 = _split16(a), _split16(b)
     shape = torch.broadcast_shapes(a16.shape[1:], b16.shape[1:])
     cols = torch.zeros((33,) + shape, dtype=I64, device=a.device)
-    for i in range(16):  # T = a*b: columns < 16 * 2**32
+    for i in range(16):
         cols[i : i + 16] += a16[i] * b16
-    p16 = _const(_P16, len(shape) + 1, a.device, I64)
+    return cols
+
+
+def redc_columns(cols: torch.Tensor) -> torch.Tensor:
+    """REDC (T + m p) / R of a value T < 2**512 held in 33 redundant 16-bit
+    columns (int64, updated in place), with the result below 2**256:
+    (8, *S) limbs."""
+    p16 = _const(_P16, cols.ndim, cols.device, I64)
     for i in range(16):  # add m_i * p * 2**(16 i), digit i of m at a time
         m = (-cols[i]) & _M16  # cols[i] * (-p^-1) mod 2**16, as p = 1 mod 2**16
         cols[i : i + 16] += m * p16
@@ -208,6 +217,10 @@ def _mul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     hi = cols[16:32]  # (T + m p) / R, redundant 16-bit columns
     s = hi[0::2] + (hi[1::2] << 16)
     return _to_i32(_carry32(s))
+
+
+def _mul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return redc_columns(product_columns(a, b))
 
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

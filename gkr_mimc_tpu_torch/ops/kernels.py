@@ -93,13 +93,14 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
-    """Validate the inputs; True for CPU tensors (plain twin), False for
-    CUDA tensors (kernel). Anything else raises."""
+def _on_cpu(name: str, *tensors: torch.Tensor, dtypes=(torch.int32,)) -> bool:
+    """Validate the inputs (int32 limb tensors unless ``dtypes`` says
+    otherwise); True for CPU tensors (plain twin), False for CUDA tensors
+    (kernel). Anything else raises."""
     dev = tensors[0].device
     for t in tensors:
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: expected int32 limb tensors, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: expected {' or '.join(map(str, dtypes))} tensors, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"{name}: inputs on {dev} and {t.device}")
         if not t.is_contiguous():
@@ -126,14 +127,16 @@ def _group_size(name: str, total: int, g: int, minimum: int) -> int:
     return n
 
 
-def _launch(name: str, entry: str, device: torch.device, *args) -> None:
+def _launch(name: str, entry: str, device: torch.device, *args, counts=LAUNCHES) -> None:
+    """Launch C entry ``entry`` on the current stream of ``device``; raise on
+    an error, else add one to ``counts[name]``."""
     lib = build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} ({lib.gkr_error_string(err).decode()})")
-    LAUNCHES[name] += 1
+    counts[name] += 1
 
 
 def _ptr(t: torch.Tensor) -> int:

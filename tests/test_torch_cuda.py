@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from gkr_mimc_tpu_torch.fields import fr
 from gkr_mimc_tpu_torch.fields.bn254 import L
 from gkr_mimc_tpu_torch.hashes.ark import arks_mont
 from gkr_mimc_tpu_torch.ops import kernels as K
+from gkr_mimc_tpu_torch.ops import probes as Pr
 
 TWO_P_TOP = 0x60C89CE5  # top 32-bit limb of 2p
 
@@ -76,3 +78,36 @@ def test_kernel_matches_plain_twin(cuda_device, name):
         want = list(want) if isinstance(want, (list, tuple)) else [want]
         assert len(got) == len(want)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# The probes (ops/probes.py) against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(Pr.PROBES))
+def test_probe_matches_plain(cuda_device, name):
+    for args in Pr.small_cases(cuda_device)[name]:
+        before = Pr.PROBE_LAUNCHES[name]
+        got = getattr(Pr, name)(*args)
+        assert Pr.PROBE_LAUNCHES[name] == before + 1
+        Pr.check(name, got, Pr.PLAIN[name](*args))  # bit-equal; the f32 body (fused on the card) to 1e-5
+
+
+@pytest.mark.gpu
+def test_mul_ptx_and_square_equal_mul_on_edges(cuda_device):
+    """fr::mul_ptx and fr::square give fr::mul's integers on every pair of
+    lazy-range edge values; the mul_ptx partial evals equal the production
+    kernel's."""
+    edges = Pr.LAZY_EDGES
+    a = fr._limb_tensor([x for x in edges for _ in edges], cuda_device)
+    b = fr._limb_tensor([y for _ in edges for y in edges], cuda_device)
+    std, ptx = Pr.field_check(a, b, "mul"), Pr.field_check(a, b, "mul_ptx")
+    assert all(torch.equal(s, p) for s, p in zip(std, ptx))
+    sq_std, sq_ptx = Pr.field_check(a, a, "mul"), Pr.field_check(a, a, "mul_ptx")
+    assert torch.equal(sq_std[0], sq_std[1]) and torch.equal(sq_ptx[0], sq_std[1])
+    eq, x0, x1 = (Pr.lazy_table(1 << 12, s, cuda_device) for s in (1, 2, 3))
+    ark = fr.encode_mont_ints([145646], cuda_device)
+    v1 = K.cipher_partial_evals(eq, x0, x1, ark, 1, 9, False)
+    for threads in Pr.PE_THREADS:
+        assert torch.equal(Pr.cipher_pe_variant(eq, x0, x1, ark, threads), v1)
