@@ -6,13 +6,17 @@ Builds the CUDA kernels from gkr_mimc_tpu_torch/csrc at first use (one
 nvcc per source, in parallel), then:
 
 1. toolchain and card: torch, CUDA, nvcc, the card's name and power limit,
-   the build time and nvcc's register report;
+   the build time and nvcc's register report, with a summary line of the
+   registers, spills and shared memory of the Gruen round's two passes and
+   the hash-chain kernels;
 2. every kernel against its plain torch twin on the card, bit for bit, at
    small shapes (G = 1, 2, 4; both claim-trick settings of the partial
    evaluations; the fold at 3 tables; multi_eq at one claim; the S-boxes
-   at odd sizes and at the lazy representatives' edges) and at the
-   main path's shapes (timed, kernel and plain, beside the least time the
-   card could take for the same work), some also at a second shape;
+   and gruen_acc at the lazy representatives' edges; gruen_acc where a
+   block sums more points than one flush interval of its digit sums) and
+   at the main path's shapes (timed, kernel and plain, beside the least
+   time the card could take for the same work), some also at a second
+   shape; the hash chain's ns a product;
 3. golden transcripts: MimcHash([12]) and tests/golden/transcripts.json,
    with tail_bits 8 and 1;
 4. a full GKR walk at bn = 14 and a grouped walk of G = 2 instances at
@@ -72,6 +76,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -117,6 +122,12 @@ HBM_BYTES_PER_S = Pr.HBM_BYTES_PER_S  # 3.35e12
 INT_MULS_PER_S = Pr.INT_RESULTS_PER_S  # 132 * 64 * 1.98e9
 MULS_PER_PRODUCT = Pr.MULS_PER_PRODUCT  # 264
 FE = 32  # bytes per field element
+# The Gruen round's deferred algorithm (csrc/round_acc.cu, namespace gruen):
+# 9 full products and 8 unreduced ones (64 widening products, 128 32-bit
+# results) a point, and a 32 x 512 byte-digit contraction on the tensor
+# cores; the design before it reduced every product, 25 a point.
+GRUEN_FULL, GRUEN_WIDE, WIDE_RESULTS, GRUEN_MACS = 9, 8, 128, 32 * 512
+GRUEN_OLD_PRODUCTS = 25
 
 
 def log(msg: str) -> None:
@@ -129,6 +140,52 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+# kernels whose registers, spills and shared memory phase 1 logs by name
+# (parts of their mangled names): the Gruen round's two passes and the
+# hash-chain kernels
+REGISTER_WATCH = ("5gruen10acc_kernel", "5gruen13finish_kernel", "gruen_round_kernel", "mimc_hash_kernel")
+
+
+def ptxas_usage(text: str) -> dict:
+    """nvcc -Xptxas -v report -> {kernel: {registers, spill_stores,
+    spill_loads, smem}} (bytes; smem static only)."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["registers"], cur["smem"] = int(m.group(1)), int(smem.group(1)) if smem else 0
+    return out
+
+
+def log_sass() -> None:
+    """The watched kernels as ptxas compiled them (cuobjdump -sass of the
+    built library): instructions in all and in the largest loop (pass 1's
+    tile loop; the hash chain's round loop, one S-box), and the tensor-core
+    (IMMA) and shuffle instructions of the loop. Fails if pass 1 of the
+    Gruen round has no IMMA in its tile loop."""
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(build.library_path())], capture_output=True, text=True,
+                          check=True).stdout
+    for fn, (loop, whole) in Pr.sass_loops(text).items():
+        if not any(key in fn for key in REGISTER_WATCH):
+            continue
+        imma = sum(op.startswith("IMMA") for op in loop)
+        shfl = sum(op.startswith("SHFL") for op in loop)
+        log(f"# sass {fn}: {len(whole)} instructions, largest loop {len(loop)} ({imma} IMMA, {shfl} SHFL)")
+        if REGISTER_WATCH[0] in fn and imma == 0:
+            raise AssertionError("gruen_acc pass 1: no IMMA in its tile loop")
 
 
 def sync() -> None:
@@ -256,6 +313,15 @@ def kernel_cases(bn: int, dev, rng):
     el = edge_table([x for x in LAZY_EDGES for _ in LAZY_EDGES], dev)
     er = edge_table([y for _ in LAZY_EDGES for y in LAZY_EDGES], dev)
     ark_edges = [edge_table([a], dev)[:, 0].contiguous() for a in LAZY_EDGES]
+    # the Gruen round at the lazy edges: every input 2p - 1, and S = 2p - 1
+    # against x0, x1 and ark cycled over the edges (G = 1 and G = 2)
+    top = edge_table([2 * P - 1] * 64, dev)
+    cyc = edge_table([LAZY_EDGES[i % len(LAZY_EDGES)] for i in range(128)], dev)
+    gruen_edges = [(top[:, :16].contiguous(), top[:, :32].contiguous(), top[:, :32].contiguous(),
+                    top[:, :1].contiguous()),
+                   (top, cyc, cyc.flip(1).contiguous(), top[:, :1].contiguous()),
+                   (top[:, :32].contiguous(), cyc[:, :64].contiguous(), cyc[:, 64:].contiguous(),
+                    cyc[:, 3:5].contiguous())]
 
     # small cases: G = 1, 2 and 4; both claim-trick settings (skip_t0 False
     # is the output layer's full first round)
@@ -275,7 +341,11 @@ def kernel_cases(bn: int, dev, rng):
          lambda: eq_args(max(1, n >> 10), 91, min(n, 1 << 10))),
         ("mul_scalar", [(r(1), q()), (r(512), q()), (r(3000), q())],
          lambda: (r(n // 2), q())),  # the largest doubling step, 2^(bn-1) -> 2^bn
-        ("gruen_acc", [acc_args(1, 2), acc_args(4, 2), acc_args(1, 1 << 16), acc_args(4, 1 << 12)],
+        # G = 1, 2, 4, ragged halves (1 and 64 points), the lazy edges, and
+        # G = 4 x 2^(bn-2) (the grouped path's tables), where a block sums
+        # more points than one flush interval of the s32 digit sums
+        ("gruen_acc", [acc_args(1, 2), acc_args(4, 2), acc_args(2, 128), acc_args(1, 1 << 16),
+                       acc_args(4, 1 << 12)] + gruen_edges + [acc_args(GROUPS, n // GROUPS)],
          lambda: acc_args(1, n)),
         ("cipher_coeff_acc", [coeff_args(1, 2), coeff_args(2, 2), coeff_args(4, 8), coeff_args(1, 1 << 16),
                               coeff_args(2, 1 << 10), coeff_args(4, 1 << 12)],
@@ -315,9 +385,25 @@ def extra_timings(bn: int, dev, rng):
     }
 
 
-def work(name: str, args) -> tuple[int, int]:
-    """(bytes moved, Montgomery products) of one call: each input read and
-    each output written once."""
+def work(name: str, args) -> tuple[int, int, int]:
+    """(bytes moved, 32-bit multiply results, int8 tensor-core operations)
+    of one call: each input read and each output written once."""
+    if name == "gruen_acc":
+        s_, x0, _, ark = args
+        points, g = s_.shape[-1], ark.shape[-1]
+        # the deferred algorithm: 9 full and 8 unreduced products a point,
+        # the 32 x 512 byte MACs of its digit contraction, 8 products by
+        # C(7, m) R^2 a group
+        return (FE * (points + 4 * points + g + 8 * g),
+                (GRUEN_FULL * MULS_PER_PRODUCT + GRUEN_WIDE * WIDE_RESULTS) * points + 8 * g * MULS_PER_PRODUCT,
+                2 * GRUEN_MACS * points)
+    nbytes, products = products_work(name, args)
+    return nbytes, products * MULS_PER_PRODUCT, 0
+
+
+def products_work(name: str, args) -> tuple[int, int]:
+    """(bytes moved, Montgomery products) of one call of a kernel that
+    reduces every product."""
     if name == "mimc_witness":
         block, _, arks = args
         n, rounds = block.shape[-1], arks.shape[0]
@@ -337,10 +423,6 @@ def work(name: str, args) -> tuple[int, int]:
         mh, lo = args
         c, j, b = mh.shape[0], mh.shape[2], lo.shape[2]
         return FE * (c * j + j * b + c * b), c * j * b
-    if name == "gruen_acc":
-        s_, x0, _, ark = args
-        half, g = s_.shape[-1], ark.shape[-1]
-        return FE * (half + 4 * half + g + 8 * g), 25 * half + 8 * g
     if name == "mul_scalar":
         x, _ = args
         return FE * (2 * x.shape[-1] + 1), x.shape[-1]
@@ -370,11 +452,48 @@ def work(name: str, args) -> tuple[int, int]:
 
 
 def bound(name: str, args) -> tuple[float, str]:
-    """(least ms the card could take, "bytes" or "operations")."""
-    nbytes, products = work(name, args)
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes' time and the operations' time, each kind of operation at
+    its own rate."""
+    nbytes, results, int8_ops = work(name, args)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = products * MULS_PER_PRODUCT / INT_MULS_PER_S * 1e3
+    t_ops = (results / INT_MULS_PER_S + int8_ops / Pr.INT8_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+CHAIN_KERNELS = ("mimc_hash", "gruen_round_scalar")
+SBOX_DEPTH = 3  # dependent products an S-box of the hash chain (csrc/mimc.cuh)
+
+
+def log_gruen_acc(bn: int, flush_case) -> None:
+    """The bound of the design before the deferred one (25 reduced products
+    a point), and how many points a block of the flush-interval case sums."""
+    points = 1 << (bn - 1)
+    old_ms = (GRUEN_OLD_PRODUCTS * points + 8) * MULS_PER_PRODUCT / INT_MULS_PER_S * 1e3
+    s_, _, _, ark = flush_case
+    g = ark.shape[-1]
+    half = s_.shape[-1] // g
+    tiles = -(-half // K.GRUEN_TILE)
+    bpg = max(1, min(tiles, -(-K._sm_count(s_.device) // g)))
+    log(f"# kernel gruen_acc: bound of the 25-product design at the main shapes {old_ms:.6f} ms (operations); "
+        f"G={g} x 2^{half.bit_length()} case: a block sums up to {-(-tiles // bpg) * K.GRUEN_TILE} points "
+        f"(s32 digit sums flushed every {K.GRUEN_FLUSH_POINTS})")
+
+
+def log_chain(name: str, ms: float, dev, rng) -> None:
+    """ns a product of the hash chain: for mimc_hash the slope between
+    K = 1 and K = 9 words (91 S-boxes a word), for the round stage its time
+    over its 9 x 91 S-boxes; each as ns an S-box, a dependent product (an
+    S-box is SBOX_DEPTH deep) and a product (4 an S-box)."""
+    sboxes = 9 * K.MIMC_ROUNDS
+    if name == "mimc_hash":
+        ms1 = time_kernel(K.mimc_hash, (rand_lazy(rng, (1,), dev),))
+        ms = time_kernel(K.mimc_hash, (rand_lazy(rng, (9,), dev),))
+        per_sbox, how = (ms - ms1) * 1e6 / (8 * K.MIMC_ROUNDS), f"slope K = 1 -> 9 ({ms1:.4f} -> {ms:.4f} ms)"
+    else:
+        per_sbox, how = ms * 1e6 / sboxes, f"{ms:.4f} ms over {sboxes} S-boxes"
+    log(f"# chain {name}: {per_sbox:.1f} ns an S-box, {per_sbox / SBOX_DEPTH:.1f} ns a dependent product, "
+        f"{per_sbox / 4:.1f} ns a product ({how})")
 
 
 def phase_kernels(bn: int, dev) -> dict:
@@ -405,6 +524,10 @@ def phase_kernels(bn: int, dev) -> dict:
                          "bound_by": bound_by, "library_ms": None}
         log(f"# kernel {name}: bit-equal to plain; {ms:.4f} ms kernel vs {plain_ms:.2f} ms plain, "
             f"bound {bound_ms:.6f} ms ({bound_by}) at the bn={bn} main-path shapes")
+        if name == "gruen_acc":
+            log_gruen_acc(bn, small[-1])
+        if name in CHAIN_KERNELS:
+            log_chain(name, ms, dev, rng)
         if name in extras:
             label, make = extras[name]
             args = make()
@@ -1083,9 +1206,14 @@ def main() -> int:
     log(f"# kernels built in {time.perf_counter() - t0:.1f} s -> {build.library_path().name}")
     report = Path(f"{build.library_path()}.log")
     if report.exists():
-        for line in report.read_text().splitlines():
+        text = report.read_text()
+        for line in text.splitlines():
             if line.startswith("== ") or "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"#   ptxas {line.split('ptxas info    :')[-1].strip()}")
+        for fn, use in ptxas_usage(text).items():
+            if any(key in fn for key in REGISTER_WATCH):
+                log(f"# registers {fn}: {json.dumps(use)}")
+    log_sass()
 
     phase_s = {"1": time.perf_counter() - start}
     mark = time.perf_counter()

@@ -15,9 +15,15 @@
 //     final subtraction, which maps [0, 2p) x [0, 2p) into [0, 2p) because
 //     4p < R.
 //
-// mul_ptx (inline-PTX carry chains) and square (each cross product once)
-// return mul's integers by other schedules. The probes compare them
-// (csrc/probes.cu, ops/probes.py); the prover's kernels use mul.
+// mul_ptx (inline-PTX carry chains), square (each cross product once) and
+// mul_fips / square_fips (product scanning) return mul's integers by other
+// schedules. The probes compare them (csrc/probes.cu, ops/probes.py). The
+// prover's throughput kernels use mul: at many elements a thread, a
+// product is bound by the card's 32-bit multiply rate (264 results a
+// product; CIOS reaches 1.8x that bound). The transcript hash is one
+// dependent chain a lane, bound by the latency of a product, not the
+// rate: csrc/mimc.cuh runs it on mul_fips and square_fips, whose word
+// products are independent of one another.
 #pragma once
 
 #include <cstdint>
@@ -298,6 +304,110 @@ __device__ __forceinline__ Fe square(const Fe& a) {
   uint32_t t[2 * L];
   square_wide(a, t);
   return redc_wide(t);
+}
+
+// The 512-bit product a * b into t (no reduction), operand scanning with
+// 64-bit accumulators: 64 widening products, 128 32-bit multiply results.
+__device__ __forceinline__ void mul_wide(const Fe& a, const Fe& b, uint32_t (&t)[2 * L]) {
+#pragma unroll
+  for (int k = 0; k < 2 * L; ++k) t[k] = 0u;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    uint64_t c = 0u;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const uint64_t s = static_cast<uint64_t>(t[i + j]) + static_cast<uint64_t>(a.v[j]) * b.v[i] + c;
+      t[i + j] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
+    t[i + L] = static_cast<uint32_t>(c);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The latency-oriented product of the hash chain (csrc/mimc.cuh):
+// finely integrated product scanning (FIPS). mul's CIOS runs 16 carry
+// chains of 8 dependent 64-bit adds, one after another. Here the words of
+// all word products go into the 64-bit sums of their output columns
+// (carry-save: a column holds fewer than 40 words, so it stays below
+// 2^38), and the word products are independent of one another. The words
+// go in two at a time, as one three-input add and its carry: in a row of
+// products x * w_j, the high word of x w_j and the low word of x w_(j+1)
+// share a column. Only the reduction digits are serial:
+// m_i = (column i, with the carry out of column i - 1) * (-p^-1) mod 2^32,
+// and column i + 1 waits for m_i. The m_i are the digits of the unique
+// m < R with T + m p = 0 mod R, so the result is the integer mul returns,
+// bit for bit.
+// ---------------------------------------------------------------------------
+
+// The row x * w_j, j = j0..7, into the column sums of the product whose row
+// index is i: column i + j0 takes the low word of x w_j0, column i + j + 1
+// the high word of x w_j and the low word of x w_(j+1), column i + 8 the
+// high word of x w_7.
+__device__ __forceinline__ void fips_row(uint64_t (&cols)[2 * L], int i, int j0, uint32_t x,
+                                         const uint32_t (&w)[L]) {
+  uint64_t t[L];
+#pragma unroll
+  for (int j = j0; j < L; ++j) t[j] = static_cast<uint64_t>(x) * w[j];
+  cols[i + j0] += static_cast<uint32_t>(t[j0]);
+#pragma unroll
+  for (int j = j0; j < L - 1; ++j)
+    cols[i + j + 1] = cols[i + j + 1] + (t[j] >> 32) + static_cast<uint32_t>(t[j + 1]);
+  cols[i + L] += t[L - 1] >> 32;
+}
+
+// REDC of T = sum_k cols[k] 2^(32 k) < 4p * 2^256: adds m_i p 2^(32 i)
+// column by column and returns (T + m p) / R, words 8..15.
+__device__ __forceinline__ Fe fips_redc(uint64_t (&cols)[2 * L]) {
+  const uint32_t p[L] = {FR_P0, FR_P1, FR_P2, FR_P3, FR_P4, FR_P5, FR_P6, FR_P7};
+  uint64_t carry = 0u;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const uint64_t c = cols[i] + carry;  // column i, everything below it resolved
+    const uint32_t m = static_cast<uint32_t>(c) * FR_NP0;
+    // the low word of c + m p_0 is 0, so its carry out is the two high
+    // words plus one unless that low word was 0 already
+    const uint64_t mp0 = static_cast<uint64_t>(m) * p[0];
+    carry = (c >> 32) + (mp0 >> 32) + (static_cast<uint32_t>(c) != 0u);
+    fips_row(cols, i, 1, m, p);
+  }
+  Fe r;
+#pragma unroll
+  for (int k = L; k < 2 * L; ++k) {
+    const uint64_t c = cols[k] + carry;
+    r.v[k - L] = static_cast<uint32_t>(c);
+    carry = c >> 32;
+  }
+  return r;
+}
+
+// REDC(a * b), the integer mul returns (a, b < 2p -> result < 2p).
+__device__ __forceinline__ Fe mul_fips(const Fe& a, const Fe& b) {
+  uint64_t cols[2 * L];
+#pragma unroll
+  for (int k = 0; k < 2 * L; ++k) cols[k] = 0u;
+#pragma unroll
+  for (int i = 0; i < L; ++i) fips_row(cols, i, 0, a.v[i], b.v);
+  return fips_redc(cols);
+}
+
+// REDC(a * a), the integer mul(a, a) returns: the 28 cross products once,
+// each column's cross sum doubled, then the 8 squares.
+__device__ __forceinline__ Fe square_fips(const Fe& a) {
+  uint64_t cols[2 * L];
+#pragma unroll
+  for (int k = 0; k < 2 * L; ++k) cols[k] = 0u;
+#pragma unroll
+  for (int i = 0; i < L - 1; ++i) fips_row(cols, i, i + 1, a.v[i], a.v);
+#pragma unroll
+  for (int k = 0; k < 2 * L; ++k) cols[k] <<= 1;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const uint64_t t = static_cast<uint64_t>(a.v[i]) * a.v[i];
+    cols[2 * i] += static_cast<uint32_t>(t);
+    cols[2 * i + 1] += t >> 32;
+  }
+  return fips_redc(cols);
 }
 
 // c * x mod 2p for a small constant c >= 1, by doubling and adding from

@@ -11,28 +11,35 @@
 // (sumcheck/prover.py before the fusion, now ops/kernels.py
 // gruen_round_scalar_plain), so P and ck' are the same bits as there.
 //
-// Bound on the H100: the dependent chain, not bytes. A lane moves about
-// 1 KB, but its hash is 9 words x 91 rounds = 819 dependent x^7 S-boxes
-// (3276 dependent Montgomery products) on one element. Design: one thread
-// per lane runs the combine, the chain and eq1 with everything in
-// registers. What it removes is the host side: the unfused stage was
-// ~40 small field ops, ~700 launches of plain torch kernels, per head
-// round; this is one launch.
+// Replaces the TPU kernel gruen_round_scalar (call :1460), whose hash runs
+// the S-box chain of fieldcore.pow7 on the MXU. Bound on the H100: the
+// dependent chain, not bytes. A lane moves about 1 KB, but its hash is
+// 9 words x 91 rounds = 819 dependent x^7 S-boxes on one element. Design:
+// a pair of neighbouring threads per lane runs the combine, the chain and
+// eq1 with everything in registers; the chain (csrc/mimc.cuh) is three
+// products deep an S-box, the middle two one a thread, on the
+// product-scanning fr::mul_fips. What the fusion removes is the host side:
+// the unfused stage was ~40 small field ops, ~700 launches of plain torch
+// kernels, per head round; this is one launch.
 #include <cuda_runtime.h>
 
 #include "mimc.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 64;  // 32 lanes a block, two threads a lane
 constexpr int kCoeffs = 8;  // Q_0..Q_7; P has kCoeffs + 1 words
 
 __global__ void __launch_bounds__(kThreads)
     gruen_round_kernel(const int32_t* q, const int32_t* alpha, const int32_t* beta,
                        const int32_t* ck, const int32_t* qk, const int32_t* arks, int32_t* p_out,
                        int32_t* r_out, int32_t* ck_out, int64_t g) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (lane >= g) return;
+  const int64_t pair = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 1;
+  const bool odd = threadIdx.x & 1;
+  // threads past the last lane run lane g - 1 too (the S-box's shuffle
+  // takes every thread of the warp) and store nothing
+  const int64_t lane = pair < g ? pair : g - 1;
+  const bool owner = pair < g && !odd;
   const fr::Fe a = fr::load(alpha, g, lane);
   const fr::Fe b = fr::load(beta, g, lane);
   const fr::Fe c = fr::load(ck, g, lane);
@@ -55,9 +62,10 @@ __global__ void __launch_bounds__(kThreads)
     const fr::Fe word = fr::mul(fr::add(alpha_cur, beta_prev), c);
     beta_prev = beta_cur;
     // p_out (8, 9, G)
-    fr::store(p_out + m * g, (kCoeffs + 1) * g, lane, word);
-    state = mimc::update(state, word, arks);
+    if (owner) fr::store(p_out + m * g, (kCoeffs + 1) * g, lane, word);
+    state = mimc::update(state, word, arks, odd);
   }
+  if (!owner) return;
   const fr::Fe r = fr::canonical(state);
   fr::store(r_out, g, lane, r);
   const fr::Fe qv = fr::load(qk, g, lane);
@@ -74,7 +82,7 @@ extern "C" int gkr_gruen_round(const void* q, const void* alpha, const void* bet
                                const void* qk, const void* arks, void* p_out, void* r_out,
                                void* ck_out, int64_t g, void* stream) {
   if (g <= 0) return 0;
-  const int64_t blocks = (g + kThreads - 1) / kThreads;
+  const int64_t blocks = (2 * g + kThreads - 1) / kThreads;
   gruen_round_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(q), static_cast<const int32_t*>(alpha),

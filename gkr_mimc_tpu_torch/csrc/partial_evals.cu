@@ -106,7 +106,7 @@ int launch(const void* eq, const void* x0, const void* x1, const void* ark, void
       static_cast<const int32_t*>(eq), static_cast<const int32_t*>(x0),
       static_cast<const int32_t*>(x1), static_cast<const int32_t*>(ark),
       static_cast<int32_t*>(partial), half, g, bpg);
-  return rsum::finish<NOUT>(partial, nullptr, out, g, bpg, st);
+  return rsum::finish<NOUT>(partial, out, g, bpg, st);
 }
 
 bool bad_geometry(int64_t half, int64_t g, int64_t bpg) { return half <= 0 || g <= 0 || bpg <= 0; }

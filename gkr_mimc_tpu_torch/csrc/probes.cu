@@ -179,12 +179,19 @@ __global__ void imma_dot_kernel(const int8_t* m, const int8_t* x, int32_t* out, 
 
 struct MulStd {
   __device__ __forceinline__ static fr::Fe mul(const fr::Fe& a, const fr::Fe& b) { return fr::mul(a, b); }
+  __device__ __forceinline__ static fr::Fe square(const fr::Fe& a) { return fr::square(a); }
 };
 struct MulPtx {
   __device__ __forceinline__ static fr::Fe mul(const fr::Fe& a, const fr::Fe& b) { return fr::mul_ptx(a, b); }
+  __device__ __forceinline__ static fr::Fe square(const fr::Fe& a) { return fr::square(a); }
+};
+struct MulFips {
+  __device__ __forceinline__ static fr::Fe mul(const fr::Fe& a, const fr::Fe& b) { return fr::mul_fips(a, b); }
+  __device__ __forceinline__ static fr::Fe square(const fr::Fe& a) { return fr::square_fips(a); }
 };
 
-// out_mul = a * b, out_sq = square(a), out_pow7 = a^7 by the chain square,
+// out_mul = a * b, out_sq = a^2 by Mul's square (fr::square, or
+// fr::square_fips with fr::mul_fips), out_pow7 = a^7 by the chain square,
 // mul, square, mul of Mul's product: all REDC forms in Montgomery.
 template <typename Mul>
 __global__ void field_check_kernel(const int32_t* a, const int32_t* b, int32_t* out_mul, int32_t* out_sq,
@@ -193,7 +200,7 @@ __global__ void field_check_kernel(const int32_t* a, const int32_t* b, int32_t* 
   if (i >= n) return;
   const fr::Fe x = fr::load(a, n, i), y = fr::load(b, n, i);
   fr::store(out_mul, n, i, Mul::mul(x, y));
-  fr::store(out_sq, n, i, fr::square(x));
+  fr::store(out_sq, n, i, Mul::square(x));
   const fr::Fe x2 = Mul::mul(x, x);
   const fr::Fe x3 = Mul::mul(x2, x);
   const fr::Fe x6 = Mul::mul(x3, x3);
@@ -201,33 +208,17 @@ __global__ void field_check_kernel(const int32_t* a, const int32_t* b, int32_t* 
 }
 
 // Variants, in the order of ops/probes.py CHAIN_VARIANTS.
-enum Variant { V_MUL, V_MUL_PTX, V_SQUARE, V_SCHOOL, V_REDC, N_VARIANTS };
-
-// The 512-bit product x * y, operand scanning with 64-bit accumulators.
-__device__ __forceinline__ void school_wide(const fr::Fe& x, const fr::Fe& y, uint32_t (&t)[2 * fr::L]) {
-#pragma unroll
-  for (int k = 0; k < 2 * fr::L; ++k) t[k] = 0u;
-#pragma unroll
-  for (int i = 0; i < fr::L; ++i) {
-    uint64_t c = 0u;
-#pragma unroll
-    for (int j = 0; j < fr::L; ++j) {
-      const uint64_t s = static_cast<uint64_t>(t[i + j]) + static_cast<uint64_t>(x.v[j]) * y.v[i] + c;
-      t[i + j] = static_cast<uint32_t>(s);
-      c = s >> 32;
-    }
-    t[i + fr::L] = static_cast<uint32_t>(c);
-  }
-}
+enum Variant { V_MUL, V_MUL_PTX, V_SQUARE, V_SCHOOL, V_REDC, V_MUL_FIPS, N_VARIANTS };
 
 template <int V>
 __device__ __forceinline__ fr::Fe chain_step(const fr::Fe& x, const fr::Fe& y) {
   if (V == V_MUL) return fr::mul(x, y);
   if (V == V_MUL_PTX) return fr::mul_ptx(x, y);
   if (V == V_SQUARE) return fr::square(x);
+  if (V == V_MUL_FIPS) return fr::mul_fips(x, y);
   uint32_t t[2 * fr::L];
   if (V == V_SCHOOL) {  // the product only, folded to 256 bits as lo ^ hi
-    school_wide(x, y, t);
+    fr::mul_wide(x, y, t);
     fr::Fe r;
 #pragma unroll
     for (int j = 0; j < fr::L; ++j) r.v[j] = t[j] ^ t[j + fr::L];
@@ -394,10 +385,10 @@ extern "C" int gkr_probe_imma_dot(const void* m, const void* x, void* out, int64
   return static_cast<int>(cudaGetLastError());
 }
 
-// a, b, out_*: (8, n); variant 0 = fr::mul, 1 = fr::mul_ptx.
+// a, b, out_*: (8, n); variant 0 = fr::mul, 1 = fr::mul_ptx, 2 = fr::mul_fips.
 extern "C" int gkr_probe_field_check(const void* a, const void* b, void* out_mul, void* out_sq,
                                      void* out_pow7, int64_t n, int64_t variant, void* stream) {
-  if (n <= 0 || variant < 0 || variant > 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || variant < 0 || variant > 2) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int kThreads = 128;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* pa = static_cast<const int32_t*>(a);
@@ -407,8 +398,10 @@ extern "C" int gkr_probe_field_check(const void* a, const void* b, void* out_mul
   auto* o3 = static_cast<int32_t*>(out_pow7);
   if (variant == 0)
     field_check_kernel<MulStd><<<blocks_for(n, kThreads), kThreads, 0, st>>>(pa, pb, o1, o2, o3, n);
-  else
+  else if (variant == 1)
     field_check_kernel<MulPtx><<<blocks_for(n, kThreads), kThreads, 0, st>>>(pa, pb, o1, o2, o3, n);
+  else
+    field_check_kernel<MulFips><<<blocks_for(n, kThreads), kThreads, 0, st>>>(pa, pb, o1, o2, o3, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -425,6 +418,7 @@ extern "C" int gkr_probe_mul_chain(const void* a, const void* b, void* out, int6
     case V_SQUARE: return launch_mul_chain<V_SQUARE>(a, b, out, n, c, t, st);
     case V_SCHOOL: return launch_mul_chain<V_SCHOOL>(a, b, out, n, c, t, st);
     case V_REDC: return launch_mul_chain<V_REDC>(a, b, out, n, c, t, st);
+    case V_MUL_FIPS: return launch_mul_chain<V_MUL_FIPS>(a, b, out, n, c, t, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

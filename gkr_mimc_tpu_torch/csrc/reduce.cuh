@@ -68,12 +68,10 @@ __device__ __forceinline__ void store_partial(int32_t* partial, fr::Fe (&acc)[NS
   for (int s = 0; s < NS; ++s) fr::store(partial + (b * NS + s) * fr::L, 1, 0, acc[s]);
 }
 
-// Pass 2: one block per group sums its bpg partials; sum s is multiplied by
-// scale[s] (Montgomery rows) when scale is given. out: (8, NS, g).
+// Pass 2: one block per group sums its bpg partials. out: (8, NS, g).
 template <int NS>
 __global__ void __launch_bounds__(kThreads)
-    finish_kernel(const int32_t* partial, const int32_t* scale, int32_t* out, int64_t g,
-                  int64_t bpg) {
+    finish_kernel(const int32_t* partial, int32_t* out, int64_t g, int64_t bpg) {
   const int64_t grp = blockIdx.x;
   fr::Fe acc[NS];
 #pragma unroll
@@ -87,20 +85,18 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x != 0) return;
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
-    const fr::Fe r = scale ? fr::mul(acc[s], fr::load(scale + s * fr::L, 1, 0)) : acc[s];
-    fr::store(out + s * g, NS * g, grp, r);
+    fr::store(out + s * g, NS * g, grp, acc[s]);
   }
 }
 
 // Launch pass 2 after a pass 1 on `st`; returns the first launch error.
 template <int NS>
-inline int finish(const void* partial, const void* scale, void* out, int64_t g, int64_t bpg,
+inline int finish(const void* partial, void* out, int64_t g, int64_t bpg,
                   cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   finish_kernel<NS><<<static_cast<unsigned>(g), kThreads, 0, st>>>(
-      static_cast<const int32_t*>(partial), static_cast<const int32_t*>(scale),
-      static_cast<int32_t*>(out), g, bpg);
+      static_cast<const int32_t*>(partial), static_cast<int32_t*>(out), g, bpg);
   return static_cast<int>(cudaGetLastError());
 }
 

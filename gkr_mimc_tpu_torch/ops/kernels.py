@@ -48,12 +48,16 @@ from functools import lru_cache
 import torch
 
 from ..fields import fr
-from ..fields.bn254 import L
+from ..fields.bn254 import L, P, R1
 from ..hashes.ark import arks_mont
 from . import build
 
 MIMC_ROUNDS = 91
 _ACC_THREADS = 256  # threads per block of csrc/round_acc.cu
+GRUEN_TILE = 256  # points a tile of the Gruen round's pass 1 (csrc/round_acc.cu gruen::kTile)
+GRUEN_COLS = 100  # byte columns a raw in its partials (gruen::kCols)
+GRUEN_FLUSH_POINTS = 32 * GRUEN_TILE  # s32 digit sums flushed this often (gruen::kFlushTiles tiles)
+GRUEN_WIDE_WORDS = 26  # 32-bit words of a raw's exact sum in pass 2 (gruen::kWideWords)
 
 # wrapper -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -66,7 +70,8 @@ KERNELS = {
     "suffix_step": ("gkr_mimc_tpu_torch/csrc/elementwise.cu", "gkr_mimc_tpu/ops/kernels.py:1000"),
     "multi_eq": ("gkr_mimc_tpu_torch/csrc/elementwise.cu", "gkr_mimc_tpu/ops/kernels.py:1588"),
     "mul_scalar": ("gkr_mimc_tpu_torch/csrc/elementwise.cu", "gkr_mimc_tpu/ops/kernels.py:1616"),
-    "gruen_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu", "gkr_mimc_tpu/ops/kernels.py:740"),
+    "gruen_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu",
+                  "gkr_mimc_tpu/ops/kernels.py:740 cipher_gruen_acc (call :777), :813 finish_gruen_acc"),
     "cipher_coeff_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu", "gkr_mimc_tpu/ops/kernels.py:644"),
     "identity_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu", "gkr_mimc_tpu/ops/kernels.py:651"),
     "cipher_partial_evals": ("gkr_mimc_tpu_torch/csrc/partial_evals.cu",
@@ -151,6 +156,19 @@ def _empty(shape, like: torch.Tensor) -> torch.Tensor:
 def _binom7(device: torch.device) -> torch.Tensor:
     """C(7, m), m = 0..7, in Montgomery form: (8 limbs, 8)."""
     return fr.encode_mont_ints([math.comb(7, m) for m in range(8)], device)
+
+
+@lru_cache(maxsize=None)
+def _binom7_r2_rows(device: torch.device) -> torch.Tensor:
+    """C(7, m) R^2 mod p, m = 0..7, as (8, 8 limbs) rows: one Montgomery
+    product by it turns a plain value into C(7, m) times its Montgomery
+    form."""
+    return fr.encode_mont_ints([math.comb(7, m) * R1 % P for m in range(8)], device).T.contiguous()
+
+
+@lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -437,23 +455,29 @@ def _cipher_raws(u, v) -> torch.Tensor:
 
 def gruen_acc(s: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor, ark: torch.Tensor) -> torch.Tensor:
     """Gruen cipher round: s (8, G*n/2) suffix eq weights, x0, x1 (8, G*n),
-    ark (8, G) -> Q (8, 8, G), Q_m = C(7,m) * sum_y S[y] u^(7-m) v^m with
-    u = x0[y] + x1[y] + ark, v = x0[y+n/2] + x1[y+n/2] + ark - u."""
+    ark (8, G) -> Q (8, 8, G) canonical, Q_m = C(7,m) * sum_y S[y]
+    u^(7-m) v^m with u = x0[y] + x1[y] + ark,
+    v = x0[y+n/2] + x1[y+n/2] + ark - u."""
     g = ark.shape[-1]
     _expect("gruen_acc", ark, (L, g))
     half = _round_geometry("gruen_acc", [x0, x1], g)
     _expect("gruen_acc", s, (L, g * half))
     if _on_cpu("gruen_acc", s, x0, x1, ark):
         return gruen_acc_plain(s, x0, x1, ark)
-    binom_rows = _binom7(s.device).T.contiguous()
-    return _round_sums("gruen_acc", "gkr_gruen_acc", 8, g, half, [s, x0, x1, ark, binom_rows])
+    # one block an SM in all: pass 1 takes 215,680 B of shared memory a block
+    bpg = max(1, min(-(-half // GRUEN_TILE), -(-_sm_count(s.device) // g)))
+    partial = torch.empty((g * bpg, 8, GRUEN_COLS), dtype=torch.int64, device=s.device)
+    out = _empty((L, 8, g), s)
+    _launch("gruen_acc", "gkr_gruen_acc", s.device, _ptr(s), _ptr(x0), _ptr(x1), _ptr(ark),
+            _ptr(_binom7_r2_rows(s.device)), _ptr(partial), _ptr(out), half, g, bpg)
+    return out
 
 
 def gruen_acc_plain(s, x0, x1, ark):
     g = ark.shape[-1]
     raws = _cipher_raws(*_cipher_line(x0, x1, ark, g))  # (8, 8, G, half)
     sums = fr.reduce_sum(fr.mul(s.reshape(L, 1, g, -1), raws), 2)  # (8, 8, G)
-    return fr.mul(sums, _binom7(s.device).reshape(L, 8, 1))
+    return fr.canonicalize(fr.mul(sums, _binom7(s.device).reshape(L, 8, 1)))
 
 
 def cipher_coeff_acc(eq: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor, ark: torch.Tensor,

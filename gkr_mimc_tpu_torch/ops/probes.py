@@ -100,9 +100,10 @@ OP_BODIES = {
 # mul_chain variants, in the order of csrc/probes.cu's Variant: name ->
 # 32-bit multiply results a step (school: 64 widening products; redc: 8 m
 # digits and 64 widening products; square: 28 cross and 8 diagonal widening
-# products, then the same reduction)
-CHAIN_VARIANTS = {"mul": 264, "mul_ptx": 264, "square": 208, "school": 128, "redc": 136}
-FIELD_VARIANTS = ("mul", "mul_ptx")
+# products, then the same reduction; mul_fips: the hash chain's
+# product-scanning product)
+CHAIN_VARIANTS = {"mul": 264, "mul_ptx": 264, "square": 208, "school": 128, "redc": 136, "mul_fips": 264}
+FIELD_VARIANTS = ("mul", "mul_ptx", "mul_fips")
 LAYOUTS = ("col", "row")
 PE_THREADS = (128, 256, 512)
 SBOX_ROUNDS = 91  # micro_row_mul.py: one permutation's worth of S-boxes
@@ -265,8 +266,8 @@ def imma_dot_plain(m, x, reps, threads=128):
 def field_check(a: torch.Tensor, b: torch.Tensor, variant: str):
     """(a * b, a^2, a^7) in Montgomery form on lazy representatives: a, b
     (8, n) -> three (8, n). The product and x^7 (square, mul, square, mul)
-    run on ``variant``'s multiply (fr::mul or fr::mul_ptx), the square on
-    fr::square."""
+    run on ``variant``'s multiply (fr::mul, fr::mul_ptx or fr::mul_fips),
+    the square on fr::square (fr::square_fips beside fr::mul_fips)."""
     v = _pick("field_check", variant, FIELD_VARIANTS)
     n = K._table_n("field_check", a)
     if b.shape != a.shape:
@@ -290,8 +291,9 @@ def field_check_plain(a, b, variant):
 
 def mul_chain(a: torch.Tensor, b: torch.Tensor, variant: str, chain: int = 8, threads: int = 256) -> torch.Tensor:
     """``chain`` dependent steps x <- f(x, b) from x = a, (8, n) tables:
-    "mul" fr::mul(x, b), "mul_ptx" fr::mul_ptx(x, b), "square" fr::square(x)
-    (all REDC of a product, on lazy representatives), "school" the 512-bit
+    "mul" fr::mul(x, b), "mul_ptx" fr::mul_ptx(x, b), "mul_fips"
+    fr::mul_fips(x, b), "square" fr::square(x) (all REDC of a product, on
+    lazy representatives), "school" the 512-bit
     product x * b folded as lo256 ^ hi256, "redc" the REDC of the 512-bit
     value x + b * 2^256 (any 256-bit x, b < 2p)."""
     v = _pick("mul_chain", variant, CHAIN_VARIANTS)
@@ -332,6 +334,7 @@ def mul_chain_plain(a, b, variant, chain=8, threads=256):
         "square": lambda x, _: fr.square(x),
         "school": _fold_product,
         "redc": _redc_high,
+        "mul_fips": fr.mul,
     }[variant]
     x = a
     for _ in range(chain):

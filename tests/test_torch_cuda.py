@@ -37,6 +37,9 @@ def _cases(rng, dev):
         return torch.from_numpy(limbs.astype(np.uint32).view(np.int32)).to(dev)
 
     arks = arks_mont(91, dev)
+    two_p = 2 * Pr.LAZY_EDGES[5]  # LAZY_EDGES[5] is p
+    top = fr._limb_tensor([two_p - 1] * 32, dev)
+    cyc = fr._limb_tensor([Pr.LAZY_EDGES[i % len(Pr.LAZY_EDGES)] for i in range(64)], dev)
     return {
         "mimc_witness": [(r(1), r(1), arks), (r(300), r(300), arks)],
         "mimc_hash": [(r(1),), (r(9),), (r(130),)],
@@ -48,8 +51,15 @@ def _cases(rng, dev):
                      (r(5, 91).permute(1, 0, 2).contiguous(), r(91, 64)),
                      (r(8, 1).permute(1, 0, 2).contiguous(), r(1, 1024))],
         "mul_scalar": [(r(1), r(1)[:, 0].contiguous()), (r(700), r(1)[:, 0].contiguous())],
+        # ragged tiles, G = 1, 2, 3, 4, the lazy edges (all 2p - 1; S = 2p - 1 over cycled edges)
+        # and G = 4 x 2^20, where a block sums more points than one flush interval
         "gruen_acc": [(r(1), r(2), r(2), r(1)), (r(3 * 512), r(3 * 1024), r(3 * 1024), r(3)),
-                      (r(1 << 15), r(1 << 16), r(1 << 16), r(1))],
+                      (r(1 << 15), r(1 << 16), r(1 << 16), r(1)), (r(2 * 64), r(2 * 128), r(2 * 128), r(2)),
+                      (top[:, :16].contiguous(), top, top, top[:, :1].contiguous()),
+                      (top, cyc, cyc.flip(1).contiguous(), top[:, :1].contiguous()),
+                      (top[:, :16].contiguous(), cyc[:, :32].contiguous(), cyc[:, 32:].contiguous(),
+                       cyc[:, 3:5].contiguous()),
+                      (r(4 << 19), r(4 << 20), r(4 << 20), r(4))],
         "cipher_coeff_acc": [(r(2), r(2), r(2), r(1), 1), (r(3 * 1024), r(3 * 1024), r(3 * 1024), r(3), 3),
                              (r(1 << 16), r(1 << 16), r(1 << 16), r(1), 1)],
         "identity_acc": [(r(2), r(2), 1), (r(3 * 1024), r(3 * 1024), 3), (r(1 << 16), r(1 << 16), 1)],
@@ -96,16 +106,18 @@ def test_probe_matches_plain(cuda_device, name):
 
 @pytest.mark.gpu
 def test_mul_ptx_and_square_equal_mul_on_edges(cuda_device):
-    """fr::mul_ptx and fr::square give fr::mul's integers on every pair of
-    lazy-range edge values; the mul_ptx partial evals equal the production
-    kernel's."""
+    """fr::mul_ptx, fr::mul_fips, fr::square and fr::square_fips give
+    fr::mul's integers on every pair of lazy-range edge values; the mul_ptx
+    partial evals equal the production kernel's."""
     edges = Pr.LAZY_EDGES
     a = fr._limb_tensor([x for x in edges for _ in edges], cuda_device)
     b = fr._limb_tensor([y for _ in edges for y in edges], cuda_device)
-    std, ptx = Pr.field_check(a, b, "mul"), Pr.field_check(a, b, "mul_ptx")
-    assert all(torch.equal(s, p) for s, p in zip(std, ptx))
-    sq_std, sq_ptx = Pr.field_check(a, a, "mul"), Pr.field_check(a, a, "mul_ptx")
-    assert torch.equal(sq_std[0], sq_std[1]) and torch.equal(sq_ptx[0], sq_std[1])
+    std = Pr.field_check(a, b, "mul")
+    sq_std = Pr.field_check(a, a, "mul")
+    assert torch.equal(sq_std[0], sq_std[1])
+    for variant in ("mul_ptx", "mul_fips"):
+        assert all(torch.equal(s, p) for s, p in zip(std, Pr.field_check(a, b, variant)))
+        assert torch.equal(Pr.field_check(a, a, variant)[1], sq_std[1])
     eq, x0, x1 = (Pr.lazy_table(1 << 12, s, cuda_device) for s in (1, 2, 3))
     ark = fr.encode_mont_ints([145646], cuda_device)
     v1 = K.cipher_partial_evals(eq, x0, x1, ark, 1, 9, False)

@@ -175,6 +175,7 @@ def test_gruen_acc_matches_jax(round_case):
     (s, x0, x1, ark, g), wants = round_case
     got = K.gruen_acc(s, x0, x1, ark)  # (8, 8, G)
     assert got.shape == (L, 8, g)
+    assert all(v < jfr.P for v in fr.limb_values(got.reshape(L, -1)))  # Q canonical
     for gi, (q, _) in enumerate(wants):
         assert vals(got[:, :, gi].contiguous()) == jvals(q)
 

@@ -120,6 +120,7 @@ def test_mul_chain_plain_matches_python_ints():
         "square": lambda x, y: _redc(x * x),
         "school": lambda x, y: ((x * y) & _R_MASK) ^ ((x * y) >> 256),
         "redc": lambda x, y: _redc(x + (y << 256)),
+        "mul_fips": lambda x, y: _redc(x * y),
     }
     got = {v: _ints(Pr.mul_chain(a, b, v, 8)) for v in Pr.CHAIN_VARIANTS}
     for variant, step in steps.items():
@@ -129,7 +130,7 @@ def test_mul_chain_plain_matches_python_ints():
                 x = step(x, y)
             want.append(x)
         assert got[variant] == want, variant
-    assert got["mul"] == got["mul_ptx"]
+    assert got["mul"] == got["mul_ptx"] == got["mul_fips"]
     assert _ints(Pr.mul_chain(a, a, "square", 1)) == _ints(Pr.mul_chain(a, a, "mul", 1))
 
 
