@@ -7,13 +7,15 @@ nvcc per source, in parallel), then:
 
 1. toolchain and card: torch, CUDA, nvcc, the card's name and power limit,
    the build time and nvcc's register report, with a summary line of the
-   registers, spills and shared memory of the Gruen round's two passes and
-   the hash-chain kernels;
+   registers, spills and shared memory of the cipher rounds' deferred
+   pass 1 (one and two weight rows), its two finishers and the hash-chain
+   kernels;
 2. every kernel against its plain torch twin on the card, bit for bit, at
    small shapes (G = 1, 2, 4; both claim-trick settings of the partial
    evaluations; the fold at 3 tables; multi_eq at one claim; the S-boxes
-   and gruen_acc at the lazy representatives' edges; gruen_acc where a
-   block sums more points than one flush interval of its digit sums) and
+   and the three cipher rounds at the lazy representatives' edges; the
+   cipher rounds where a block sums more points than one flush interval of
+   their digit sums) and
    at the main path's shapes (timed, kernel and plain, beside the least
    time the card could take for the same work), some also at a second
    shape; the hash chain's ns a product;
@@ -122,12 +124,12 @@ HBM_BYTES_PER_S = Pr.HBM_BYTES_PER_S  # 3.35e12
 INT_MULS_PER_S = Pr.INT_RESULTS_PER_S  # 132 * 64 * 1.98e9
 MULS_PER_PRODUCT = Pr.MULS_PER_PRODUCT  # 264
 FE = 32  # bytes per field element
-# The Gruen round's deferred algorithm (csrc/round_acc.cu, namespace gruen):
-# 9 full products and 8 unreduced ones (64 widening products, 128 32-bit
-# results) a point, and a 32 x 512 byte-digit contraction on the tensor
-# cores; the design before it reduced every product, 25 a point.
-GRUEN_FULL, GRUEN_WIDE, WIDE_RESULTS, GRUEN_MACS = 9, 8, 128, 32 * 512
-GRUEN_OLD_PRODUCTS = 25
+# The cipher rounds' deferred algorithm (csrc/round_acc.cu, namespace
+# deferred): 9 full products and 8 unreduced ones (64 widening products,
+# 128 32-bit results) a point, and a 32 x 512 byte-digit contraction on the
+# tensor cores a weight row (one for gruen_acc, two for the direct rounds).
+DEFERRED_FULL, DEFERRED_WIDE, WIDE_RESULTS, DEFERRED_MACS = 9, 8, 128, 32 * 512
+WEIGHT_ROWS = {"gruen_acc": 1, "cipher_coeff_acc": 2, "cipher_partial_evals": 2}
 
 
 def log(msg: str) -> None:
@@ -143,9 +145,10 @@ def card_line() -> str:
 
 
 # kernels whose registers, spills and shared memory phase 1 logs by name
-# (parts of their mangled names): the Gruen round's two passes and the
-# hash-chain kernels
-REGISTER_WATCH = ("5gruen10acc_kernel", "5gruen13finish_kernel", "gruen_round_kernel", "mimc_hash_kernel")
+# (parts of their mangled names): the cipher rounds' deferred pass 1 (both
+# instantiations) and its finishers, and the hash-chain kernels
+REGISTER_WATCH = ("8deferred10acc_kernel", "8deferred19gruen_finish_kernel", "8deferred19coeff_finish_kernel",
+                  "gruen_round_kernel", "mimc_hash_kernel")
 
 
 def ptxas_usage(text: str) -> dict:
@@ -173,8 +176,8 @@ def log_sass() -> None:
     """The watched kernels as ptxas compiled them (cuobjdump -sass of the
     built library): instructions in all and in the largest loop (pass 1's
     tile loop; the hash chain's round loop, one S-box), and the tensor-core
-    (IMMA) and shuffle instructions of the loop. Fails if pass 1 of the
-    Gruen round has no IMMA in its tile loop."""
+    (IMMA) and shuffle instructions of the loop. Fails if an instantiation
+    of the cipher rounds' pass 1 has no IMMA in its tile loop."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     text = subprocess.run([str(cuobjdump), "-sass", str(build.library_path())], capture_output=True, text=True,
                           check=True).stdout
@@ -185,7 +188,7 @@ def log_sass() -> None:
         shfl = sum(op.startswith("SHFL") for op in loop)
         log(f"# sass {fn}: {len(whole)} instructions, largest loop {len(loop)} ({imma} IMMA, {shfl} SHFL)")
         if REGISTER_WATCH[0] in fn and imma == 0:
-            raise AssertionError("gruen_acc pass 1: no IMMA in its tile loop")
+            raise AssertionError(f"{fn}: no IMMA in its tile loop")
 
 
 def sync() -> None:
@@ -322,6 +325,13 @@ def kernel_cases(bn: int, dev, rng):
                    (top, cyc, cyc.flip(1).contiguous(), top[:, :1].contiguous()),
                    (top[:, :32].contiguous(), cyc[:, :64].contiguous(), cyc[:, 64:].contiguous(),
                     cyc[:, 3:5].contiguous())]
+    # the direct rounds at the lazy edges: every input 2p - 1; eq = 2p - 1
+    # against x0, x1 and ark cycled over the edges; eq cycled too (G = 2)
+    direct_edges = [(top[:, :32].contiguous(), top[:, :32].contiguous(), top[:, :32].contiguous(),
+                     top[:, :1].contiguous(), 1),
+                    (top, cyc[:, :64].contiguous(), cyc[:, 64:].contiguous(), top[:, :1].contiguous(), 1),
+                    (cyc[:, 64:].contiguous(), cyc[:, :64].contiguous(), cyc.flip(1)[:, :64].contiguous(),
+                     cyc[:, 3:5].contiguous(), 2)]
 
     # small cases: G = 1, 2 and 4; both claim-trick settings (skip_t0 False
     # is the output layer's full first round)
@@ -343,18 +353,22 @@ def kernel_cases(bn: int, dev, rng):
          lambda: (r(n // 2), q())),  # the largest doubling step, 2^(bn-1) -> 2^bn
         # G = 1, 2, 4, ragged halves (1 and 64 points), the lazy edges, and
         # G = 4 x 2^(bn-2) (the grouped path's tables), where a block sums
-        # more points than one flush interval of the s32 digit sums
+        # more points than one flush interval of the s32 digit sums (last in
+        # the list of each cipher round)
         ("gruen_acc", [acc_args(1, 2), acc_args(4, 2), acc_args(2, 128), acc_args(1, 1 << 16),
                        acc_args(4, 1 << 12)] + gruen_edges + [acc_args(GROUPS, n // GROUPS)],
          lambda: acc_args(1, n)),
         ("cipher_coeff_acc", [coeff_args(1, 2), coeff_args(2, 2), coeff_args(4, 8), coeff_args(1, 1 << 16),
-                              coeff_args(2, 1 << 10), coeff_args(4, 1 << 12)],
+                              coeff_args(2, 1 << 10), coeff_args(4, 1 << 12)] + direct_edges
+         + [coeff_args(GROUPS, n // GROUPS)],
          lambda: coeff_args(1, n)),
         ("identity_acc", [(r(2), r(2), 1), (r(8), r(8), 4), (r(1 << 16), r(1 << 16), 1),
                           (r(4 << 12), r(4 << 12), 4)],
          lambda: (r(n), r(n), 1)),
         ("cipher_partial_evals", [cpe_args(g, m, skip) for g, m in ((1, 2), (2, 8), (4, 1 << 12), (1, 1 << 16))
-                                  for skip in (False, True)],
+                                  for skip in (False, True)]
+         + [e + (K.CIPHER_EVALS, skip) for e in direct_edges for skip in (False, True)]
+         + [cpe_args(GROUPS, n // GROUPS, True)],
          lambda: cpe_args(1, n, True)),
         ("identity_partial_evals", [ipe_args(g, m, skip) for g, m in ((1, 2), (2, 8), (4, 1 << 12), (1, 1 << 16))
                                     for skip in (False, True)],
@@ -388,15 +402,22 @@ def extra_timings(bn: int, dev, rng):
 def work(name: str, args) -> tuple[int, int, int]:
     """(bytes moved, 32-bit multiply results, int8 tensor-core operations)
     of one call: each input read and each output written once."""
-    if name == "gruen_acc":
-        s_, x0, _, ark = args
-        points, g = s_.shape[-1], ark.shape[-1]
+    if name in WEIGHT_ROWS:
         # the deferred algorithm: 9 full and 8 unreduced products a point,
-        # the 32 x 512 byte MACs of its digit contraction, 8 products by
-        # C(7, m) R^2 a group
-        return (FE * (points + 4 * points + g + 8 * g),
-                (GRUEN_FULL * MULS_PER_PRODUCT + GRUEN_WIDE * WIDE_RESULTS) * points + 8 * g * MULS_PER_PRODUCT,
-                2 * GRUEN_MACS * points)
+        # the 32 x 512 byte MACs of its digit contraction a weight row, one
+        # product to Montgomery form a coefficient (8 or 9 a group)
+        if name == "gruen_acc":
+            s_, x0, _, ark = args
+            points, g = s_.shape[-1], ark.shape[-1]
+            nbytes, coeffs = FE * (points + 4 * points + g + 8 * g), 8
+        else:
+            eq, g = args[0], args[4]
+            points, n_out = eq.shape[-1] // 2, 9 if name == "cipher_coeff_acc" else args[5] - bool(args[6])
+            nbytes, coeffs = FE * (3 * eq.shape[-1] + g + n_out * g), 9
+        return (nbytes,
+                (DEFERRED_FULL * MULS_PER_PRODUCT + DEFERRED_WIDE * WIDE_RESULTS) * points
+                + coeffs * g * MULS_PER_PRODUCT,
+                2 * WEIGHT_ROWS[name] * DEFERRED_MACS * points)
     nbytes, products = products_work(name, args)
     return nbytes, products * MULS_PER_PRODUCT, 0
 
@@ -429,11 +450,8 @@ def products_work(name: str, args) -> tuple[int, int]:
     if name == "identity_acc":
         eq, _, g = args
         return FE * (2 * eq.shape[-1] + 3 * g), 4 * (eq.shape[-1] // 2)
-    if name == "cipher_coeff_acc":
-        eq, _, _, _, g = args
-        # 9 for the powers, 8 raws, 16 weighted by e and de, per point
-        return FE * (3 * eq.shape[-1] + g + 9 * g), 33 * (eq.shape[-1] // 2)
-    if name in ("cipher_partial_evals", "identity_partial_evals"):
+    # cipher_evals_per_t: the cipher round at every t, cipher_pe_variant's design
+    if name in ("cipher_evals_per_t", "identity_partial_evals"):
         eq, g, n_evals, skip = args[0], args[-3], args[-2], args[-1]
         n_out, n_tables = n_evals - bool(skip), (3 if name.startswith("cipher") else 2)
         per_t = 5 if name.startswith("cipher") else 1  # x^7 and the eq weight, or the eq weight
@@ -465,19 +483,26 @@ CHAIN_KERNELS = ("mimc_hash", "gruen_round_scalar")
 SBOX_DEPTH = 3  # dependent products an S-box of the hash chain (csrc/mimc.cuh)
 
 
-def log_gruen_acc(bn: int, flush_case) -> None:
-    """The bound of the design before the deferred one (25 reduced products
-    a point), and how many points a block of the flush-interval case sums."""
-    points = 1 << (bn - 1)
-    old_ms = (GRUEN_OLD_PRODUCTS * points + 8) * MULS_PER_PRODUCT / INT_MULS_PER_S * 1e3
-    s_, _, _, ark = flush_case
-    g = ark.shape[-1]
-    half = s_.shape[-1] // g
-    tiles = -(-half // K.GRUEN_TILE)
-    bpg = max(1, min(tiles, -(-K._sm_count(s_.device) // g)))
-    log(f"# kernel gruen_acc: bound of the 25-product design at the main shapes {old_ms:.6f} ms (operations); "
-        f"G={g} x 2^{half.bit_length()} case: a block sums up to {-(-tiles // bpg) * K.GRUEN_TILE} points "
-        f"(s32 digit sums flushed every {K.GRUEN_FLUSH_POINTS})")
+# reduced products a point of the design before the deferred one, at the
+# main path's shapes (cipher_partial_evals: t = 1..8, 5 a t)
+OLD_PRODUCTS = {"gruen_acc": 25, "cipher_coeff_acc": 33, "cipher_partial_evals": 40}
+
+
+def log_deferred(name: str, bn: int, flush_case) -> None:
+    """The bound of the design before the deferred one, and how many points
+    a block of the flush-interval case sums."""
+    old_ms = OLD_PRODUCTS[name] * (1 << (bn - 1)) * MULS_PER_PRODUCT / INT_MULS_PER_S * 1e3
+    if name == "gruen_acc":
+        g = flush_case[3].shape[-1]
+        half = flush_case[0].shape[-1] // g
+    else:
+        g = flush_case[4]
+        half = flush_case[0].shape[-1] // g // 2
+    tiles = -(-half // K.DEFERRED_TILE)
+    bpg = K._deferred_blocks(half, g, flush_case[0].device)
+    log(f"# kernel {name}: bound of the {OLD_PRODUCTS[name]}-product design at the main shapes {old_ms:.6f} ms "
+        f"(operations); G={g} x 2^{half.bit_length() - 1} points case: a block sums up to "
+        f"{-(-tiles // bpg) * K.DEFERRED_TILE} points (s32 digit sums flushed every {K.DEFERRED_FLUSH_POINTS})")
 
 
 def log_chain(name: str, ms: float, dev, rng) -> None:
@@ -524,8 +549,8 @@ def phase_kernels(bn: int, dev) -> dict:
                          "bound_by": bound_by, "library_ms": None}
         log(f"# kernel {name}: bit-equal to plain; {ms:.4f} ms kernel vs {plain_ms:.2f} ms plain, "
             f"bound {bound_ms:.6f} ms ({bound_by}) at the bn={bn} main-path shapes")
-        if name == "gruen_acc":
-            log_gruen_acc(bn, small[-1])
+        if name in WEIGHT_ROWS:
+            log_deferred(name, bn, small[-1])
         if name in CHAIN_KERNELS:
             log_chain(name, ms, dev, rng)
         if name in extras:
@@ -1134,9 +1159,10 @@ def probe_bound(name: str, args) -> tuple[float, str]:
         x, _, rounds = (args + (Pr.SBOX_ROUNDS,))[:3]
         n = x.shape[1]
         nbytes, t_ops = 2 * FE * n, 4 * rounds * MULS_PER_PRODUCT * n / INT_MULS_PER_S
-    elif name == "cipher_pe_variant":
+    elif name == "cipher_pe_variant":  # the per-t design: 5 reduced products a t
         eq, x0, x1, ark = args[:4]
-        return bound("cipher_partial_evals", (eq, x0, x1, ark, 1, K.CIPHER_EVALS, False))
+        nbytes, products = products_work("cipher_evals_per_t", (eq, x0, x1, ark, 1, K.CIPHER_EVALS, False))
+        t_ops = products * MULS_PER_PRODUCT / INT_MULS_PER_S
     else:
         raise KeyError(name)
     t_bytes = nbytes / HBM_BYTES_PER_S

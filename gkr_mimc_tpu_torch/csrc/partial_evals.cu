@@ -1,35 +1,36 @@
-// Sumcheck round sums in evaluation form: the round polynomial at
-// t = 0..n_evals-1 (or 1..n_evals-1 with the claim trick, where the caller
-// derives P(0) = claim - P(1)).
+// Sumcheck round sums in evaluation form, one t at a time: the round
+// polynomial at t = 0..n_evals-1 (or 1..n_evals-1 with the claim trick,
+// where the caller derives P(0) = claim - P(1)).
 //
-// Replaces gkr_mimc_tpu/ops/kernels.py:cipher_partial_evals and
-// identity_partial_evals (G = 1), and cipher_partial_evals_g and
-// identity_partial_evals_g (G lanes, via _pe_call_g); one kernel each
-// serves every G, since (8, G, n) grouped tables are the same memory as
+// Replaces gkr_mimc_tpu/ops/kernels.py:identity_partial_evals (G = 1) and
+// identity_partial_evals_g (G lanes, via _pe_call_g); one kernel serves
+// every G, since (8, G, n) grouped tables are the same memory as
 // group-major (8, G * n). On the TPU the column sums ride in the output
 // block across a sequential grid and a wide REDC finishes them; here pass 1
-// writes one partial per block and pass 2 sums them (csrc/reduce.cuh).
+// writes one partial per block and pass 2 sums them (csrc/reduce.cuh). The
+// cipher round in evaluation form is the deferred contraction of
+// csrc/round_acc.cu (gkr_cipher_partial_evals) evaluated at t in its
+// finisher.
 //
 // Per half-cube point the restriction of each table to the round's
 // variable is walked along t by adds: a_0 = a[bot], a_1 = a[top],
 // a_t = a_(t-1) + (a[top] - a[bot]), the same order as the plain twin.
 //
-// Bound on the H100: integer multiply throughput. The cipher round does
-// (4 + 1) Montgomery products per t (the S-box x^7 and the eq weight),
-// 40 or 45 per point against 192 B read; the identity round 2 or 3 per
-// point against 128 B, about as many bytes as products, so it sits near
-// the byte bound. Design: one thread per point in a grid-stride loop, the
-// n_out running sums in registers (t unrolled at compile time), a block
-// reduction and a second launch over the partials.
+// Bound on the H100: the identity round does 2 or 3 Montgomery products a
+// point against 128 B read, about as many bytes as products, so it sits
+// near the byte bound. Design: one thread per point in a grid-stride loop,
+// the n_out running sums in registers (t unrolled at compile time), a
+// block reduction and a second launch over the partials.
 //
-// The kernel is a template over its multiply and its block size: the
-// production instantiation is fr::mul at 256 threads. A second entry,
-// gkr_cipher_partial_evals_ptx, runs the cipher round on fr::mul_ptx at
-// 128, 256 or 512 threads for the multiply A/B probe (ops/probes.py, the
-// counterpart of scripts/micro_pe_mxu.py, which runs the TPU kernel with
-// its other multiply). That entry is compiled from this file by
+// The kernel is a template over its gate, its multiply and its block size.
+// The cipher gate (x0 + x1 + ark)^7 at every t, 5 products a t, is the
+// design the production kernel had before the deferred one; it stays for
+// the multiply A/B probe: gkr_cipher_partial_evals_ptx runs it on
+// fr::mul_ptx at 128, 256 or 512 threads (ops/probes.py, the counterpart
+// of scripts/micro_pe_mxu.py, which runs the TPU kernel with its other
+// multiply). That entry is compiled from this file by
 // csrc/partial_evals_ptx.cu (GKR_PARTIAL_EVALS_PTX defined), so its three
-// large instantiations build in parallel with the production ones.
+// large instantiations build in parallel with the other kernels.
 #include <cuda_runtime.h>
 
 #include "fr.cuh"
@@ -115,19 +116,6 @@ bool bad_geometry(int64_t half, int64_t g, int64_t bpg) { return half <= 0 || g 
 
 #ifndef GKR_PARTIAL_EVALS_PTX
 
-// eq, x0, x1: (8, g * 2 * half); ark: (8, g); n_evals = 9 (degree 7 + 2);
-// partial: (g * bpg, n_out, 8) scratch; out: (8, n_out, g) with
-// n_out = n_evals - skip_t0.
-extern "C" int gkr_cipher_partial_evals(const void* eq, const void* x0, const void* x1,
-                                        const void* ark, void* partial, void* out, int64_t half,
-                                        int64_t g, int64_t bpg, int64_t n_evals, int64_t skip_t0,
-                                        void* stream) {
-  if (bad_geometry(half, g, bpg) || n_evals != 9) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (skip_t0) return launch<8, 1, true>(eq, x0, x1, ark, partial, out, half, g, bpg, st);
-  return launch<9, 0, true>(eq, x0, x1, ark, partial, out, half, g, bpg, st);
-}
-
 // eq, x: (8, g * 2 * half); n_evals = 3 (degree 1 + 2); partial:
 // (g * bpg, n_out, 8) scratch; out: (8, n_out, g).
 extern "C" int gkr_identity_partial_evals(const void* eq, const void* x, void* partial, void* out,
@@ -141,10 +129,11 @@ extern "C" int gkr_identity_partial_evals(const void* eq, const void* x, void* p
 
 #else
 
-// The cipher round of gkr_cipher_partial_evals at t = 0..8 (9 evaluations,
-// no claim trick) on fr::mul_ptx, at `threads` = 128, 256 or 512 a block:
-// the multiply A/B probe only, never the prover's path. Arguments and
-// output as gkr_cipher_partial_evals.
+// The cipher round in evaluation form at t = 0..8 (9 evaluations, no
+// claim trick), 5 products a t, on fr::mul_ptx, at `threads` = 128, 256
+// or 512 a block: the multiply A/B probe only, never the prover's path.
+// eq, x0, x1: (8, g * 2 * half); ark: (8, g); partial: (g * bpg, 9, 8)
+// scratch; out: (8, 9, g), the sums lazy (below 2p).
 extern "C" int gkr_cipher_partial_evals_ptx(const void* eq, const void* x0, const void* x1,
                                             const void* ark, void* partial, void* out, int64_t half,
                                             int64_t g, int64_t bpg, int64_t threads, void* stream) {

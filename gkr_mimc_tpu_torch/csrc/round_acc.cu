@@ -1,24 +1,28 @@
-// Sumcheck round accumulators in coefficient form: the hypercube sums of
-// one round, returned as the round's field values.
+// Sumcheck round accumulators: the hypercube sums of one round, returned as
+// the round's field values.
 //
 // Replaces gkr_mimc_tpu/ops/kernels.py:cipher_gruen_acc (with its XLA
 // finisher finish_gruen_acc), gkr_mimc_tpu/ops/kernels.py:cipher_coeff_acc
-// and gkr_mimc_tpu/ops/kernels.py:identity_coeff_acc (both with
-// finish_coeff_acc). On the TPU the sum is carried in the output block
-// across sequential grid steps and finished outside the kernel; here
-// blocks run in no order, so pass 1 writes one partial per block and pass 2
-// reduces the partials of each group.
+// (with finish_coeff_acc), gkr_mimc_tpu/ops/kernels.py:cipher_partial_evals
+// and cipher_partial_evals_g, and
+// gkr_mimc_tpu/ops/kernels.py:identity_coeff_acc (with finish_coeff_acc).
+// On the TPU the sum is carried in the output block across sequential grid
+// steps and finished outside the kernel; here blocks run in no order, so
+// pass 1 writes one partial per block and pass 2 reduces the partials of
+// each group.
 //
-// The Gruen cipher round (namespace gruen below) keeps the TPU kernel's
-// algorithm: its 8 raw products stay unreduced, their sum over the points
-// is a digit contraction, here on the int8 tensor cores, and the Montgomery
-// reduction runs once a coefficient in pass 2.
+// The three cipher rounds (namespace deferred below) share one pass 1, the
+// TPU kernels' algorithm: the 8 raw products of a point stay unreduced,
+// their weighted sum over the points is a digit contraction, here on the
+// int8 tensor cores, and the Montgomery reduction runs once a sum in
+// pass 2. The Gruen round weighs the raws by one row (the suffix eq S),
+// the direct rounds by two (eq at the bottom and at the top of the round's
+// variable); pass 2 turns the sums into the Gruen round's Q, the
+// round polynomial's coefficients, or its values at t.
 //
-// The direct cipher round and the identity round reduce every product in
-// registers (CIOS, fr::mul) and sum field values (csrc/reduce.cuh). Bound
-// on the H100: integer multiply throughput, 9 + 8 + 16 = 33 Montgomery
-// products a half-cube point against 192 B read for the direct cipher
-// round, 4 against 128 B for the identity round. Design: one thread per
+// The identity round reduces every product in registers (CIOS, fr::mul)
+// and sums field values (csrc/reduce.cuh). Bound on the H100: 4 Montgomery
+// products a half-cube point against 128 B read. Design: one thread per
 // point in a grid-stride loop, the running sums in registers, a block
 // reduction, and a second small launch over the partials.
 #include <cuda_runtime.h>
@@ -59,18 +63,6 @@ struct CipherPowers {
       default: fr::mul_wide(v6, v, t); return;
     }
   }
-  __device__ __forceinline__ fr::Fe raw(int k) const {
-    switch (k) {
-      case 0: return fr::mul(u6, u);
-      case 1: return fr::mul(u6, v);
-      case 2: return fr::mul(uv2, u3);
-      case 3: return fr::mul(uv3, u);
-      case 4: return fr::mul(uv3, v);
-      case 5: return fr::mul(uv2, v3);
-      case 6: return fr::mul(v6, u);
-      default: return fr::mul(v6, v);
-    }
-  }
 };
 
 // u = x0[bot] + x1[bot] + ark and v = x0[top] + x1[top] + ark - u.
@@ -83,62 +75,98 @@ __device__ __forceinline__ void cipher_line(const int32_t* x0, const int32_t* x1
   v = fr::sub(top, u);
 }
 
+
 // ---------------------------------------------------------------------------
-// The Gruen cipher round: 17 products a point, the reduction deferred past
-// the sum over the points, the sum a digit contraction on the tensor cores.
+// The cipher rounds: 17 products a point, the reduction deferred past the
+// sum over the points, the sum a digit contraction on the tensor cores.
 //
 // Replaces gkr_mimc_tpu/ops/kernels.py:cipher_gruen_acc (:740, call :777;
-// raws :667-695, kernel :698-737) and its finisher finish_gruen_acc (:813).
-// The TPU kernel does 9 full products for the powers and leaves the 8 raws
-// u^(7-m) v^m unreduced (512-bit products of two lazy factors); it sums
-// S[y] * raw_m[y] over the points as a matrix product of their digits on
-// the MXU, and its finisher carries the digit sums into one wide integer a
-// coefficient, reduces it by three wide REDCs (S carries R, each raw R^2)
-// and scales by C(7, m) R^2 in one Montgomery product.
+// raws :667-695, kernel :698-737) with its finisher finish_gruen_acc
+// (:813), cipher_coeff_acc (:644, call :630; _weighted_acc_update :506,
+// _cipher_coeff_kernel :539) with finish_coeff_acc (:1057), and
+// cipher_partial_evals (:377, call :392) and cipher_partial_evals_g
+// (:1211). The TPU kernels do 9 full products for the powers and leave the
+// 8 raws u^(7-m) v^m unreduced (512-bit products of two lazy factors);
+// they sum weight[y] * raw_m[y] over the points as a matrix product of
+// their digits on the MXU, and the finisher carries the digit sums into
+// one wide integer a sum, reduces it by three wide REDCs (the weight
+// carries R, each raw R^2) and scales it. The TPU's evaluation-form kernel
+// computes the S-box again at every t; here it is the same contraction,
+// since the round polynomial P(t) = sum_m c_m t^m and the sum over the
+// points commutes with evaluation at t.
+//
+// Weights (W rows): the Gruen round's suffix eq S (W = 1, Q_m = C(7, m)
+// <S, raw_m>); the direct rounds' e = eq[bot] and et = eq[top] (W = 2).
+// With de = et - e, P(t) = sum (e + t de) (u + t v)^7 has coefficients
+// c_m = C(7, m) A_m + C(7, m - 1) (T_(m-1) - A_(m-1)), A_m = <e, raw_m>,
+// T_m = <et, raw_m>; et, not de, is contracted so that both weight rows
+// are table values below 2p.
 //
 // Bound on the H100: 32-bit integer multiply throughput. Per point, 9 full
 // products (264 32-bit multiply results each) and 8 unreduced ones (128):
-// 3,400 results against 96 B read; the contraction's 32 x 512 = 16,384
-// byte MACs a point are ~8 % of that time at the tensor cores' int8 rate.
-// The design before this one reduced every S * raw product in registers
-// (25 products, 6,600 results a point) and ran at 4x its bound.
+// 3,400 results against 96 B (W = 1) or 128 B (W = 2) read; the
+// contraction's W x 32 x 512 byte MACs a point are ~8 % (W = 1) or ~14 %
+// (W = 2) of that time at the tensor cores' int8 rate. The designs before
+// this one reduced every weighted product in registers: 25 products a
+// point for the Gruen round, 33 for the coefficients, 45 for the values at
+// t = 0..8.
 //
-// Design, pass 1 (one block of 256 threads an SM, 215,680 B of dynamic
-// shared memory): a tile is 256 points, one a thread. Each thread computes
-// its point's powers on fr::mul and its 8 raws on fr::mul_wide, and writes
-// them to shared memory as 32-bit words, point-contiguous: row 16 m + w
-// holds word w of raw m. It writes S[y] as 35 byte windows W_j (byte q of
-// W_j is byte j - q of S, zero outside 0..31), one row each. Then warp m
-// contracts raw m with the windows over the tile's points:
-// mma.sync.m16n8k32 u8 x u8 -> s32 with A = raw words (16 rows = the raw's
-// 16 words; the 32 bytes of k are 8 points x 4 bytes) and B = windows
-// (5 tiles of 8 columns), both through ldmatrix. Summed over q, the product
-// of byte 4 w + q of a raw and byte j - q of S has weight 2^(8 (4 w + j)),
-// so digit sum D_m[w][j] holds every byte pair (a, b) of raw m and S once,
-// at byte column 4 w + j. A point adds at most 4 * 255^2 to a digit sum,
-// so the s32 sums are flushed to 64-bit sums in shared memory every 32
-// tiles (8,192 points, 2^31 / (4 * 255^2) = 8,256). The block ends by
-// adding the digit sums of each raw into its 100 byte columns and writes
-// them as its partial. Pass 2 (one block a group) adds the partials of the
-// group's blocks, carries the columns into one 832-bit integer a raw,
-// reduces it by three REDCs and one fr::mul by C(7, m) R^2 mod p, and
-// returns Q canonical. All sums are of integers, so any order of blocks,
-// warps and points gives the same bits.
+// Design, pass 1 (one block of 256 threads an SM, 181,120 B (W = 1) or
+// 220,800 B (W = 2) of dynamic shared memory): a tile is 256 points, one a
+// thread. Each thread computes its point's powers on fr::mul and its 8
+// raws on fr::mul_wide, and writes them to shared memory as 32-bit words,
+// point-contiguous: row 16 m + w holds word w of raw m. It writes each
+// weight as 35 byte windows (byte q of window j is byte j - q of the
+// weight, zero outside 0..31), one row each: row 35 r + j holds window j
+// of weight row r, and zero rows pad them to whole tiles of 8 columns
+// (5 tiles for W = 1, 9 for W = 2). Then warp m contracts raw m with the
+// windows over the tile's points: mma.sync.m16n8k32 u8 x u8 -> s32 with
+// A = raw words (16 rows = the raw's 16 words; the 32 bytes of k are 8
+// points x 4 bytes) and B = windows, both through ldmatrix. Summed over q,
+// the product of byte 4 w + q of a raw and byte j - q of a weight has
+// weight 2^(8 (4 w + j)), so digit sum D_m[w][35 r + j] holds every byte
+// pair (a, b) of raw m and weight r once, at byte column 4 w + j. A point
+// adds at most 4 * 255^2 to a digit sum, so the s32 sums are flushed every
+// 32 tiles (8,192 points, 2^31 / (4 * 255^2) = 8,256) into 64-bit byte
+// columns in shared memory (shared atomic adds: the lanes of a warp share
+// columns). The block writes its columns, 100 a raw and weight row, as its
+// partial. Pass 2 (one block a group) adds the partials of the group's
+// blocks, carries the columns into one 832-bit integer a sum and reduces
+// it by three REDCs to the sum's plain value, then finishes it in
+// Montgomery form, canonical: small multiples by C(7, m) and adds form
+// Q_m (the Gruen round) or the coefficients c_m (the direct rounds), one
+// fr::mul by R^2 mod p each, and the evaluations take Horner's rule at t
+// on adds. All sums are of integers, so
+// any order of blocks, warps and points gives the same bits.
 // ---------------------------------------------------------------------------
 
-namespace gruen {
+namespace deferred {
 
 constexpr int kTile = 256;                   // points a tile, one a thread
 constexpr int kRawWords = 2 * fr::L;         // words of an unreduced raw
 constexpr int kRows = 8 * kRawWords;         // shared rows of the raws: 16 m + w
-constexpr int kLiveWins = 35;                // windows of S with a nonzero byte
-constexpr int kWins = 40;                    // 5 tiles of 8 columns
+constexpr int kLiveWins = 35;                // windows of a weight with a nonzero byte
 constexpr int kStride = kTile + 4;           // words a row: the 8 rows of an ldmatrix hit distinct banks
-constexpr int kCols = 100;                   // byte columns 4 w + j of a raw's sum
+constexpr int kCols = 100;                   // byte columns 4 w + j of a sum (94 the last nonzero)
 constexpr int kFlushTiles = 32;              // 8,192 points; 8,192 * 4 * 255^2 < 2^31
-constexpr int kWideWords = 26;               // 832 bits hold a raw's sum (below 2^800)
-constexpr size_t kSmemBytes =
-    sizeof(uint32_t) * (kRows + kWins) * kStride + sizeof(uint64_t) * 8 * kRawWords * kWins;
+constexpr int kWideWords = 26;               // 832 bits hold a sum (below 2^800)
+
+// W weight rows: tiles of 8 window columns, shared memory of pass 1
+template <int W>
+struct Shape {
+  static constexpr int kNTiles = (kLiveWins * W + 7) / 8;  // 5 or 9
+  static constexpr int kWins = 8 * kNTiles;                // window rows, the live ones first
+  static constexpr int kSums = 8 * W;                      // sums a block: raw m, weight r at m W + r
+  static constexpr size_t kSmemBytes =
+      sizeof(uint32_t) * (kRows + kWins) * kStride + sizeof(uint64_t) * kSums * kCols;
+};
+
+// R^2 mod p: one Montgomery product by it takes a plain value to its
+// Montgomery form
+__device__ __forceinline__ fr::Fe r2() {
+  return fr::Fe{{0xae216da7u, 0x1bb8e645u, 0xe35c59e3u, 0x53fe3ab1u, 0x53bb8085u, 0x8c49833du, 0x7f4e44a5u,
+                 0x0216d0b1u}};
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -175,53 +203,66 @@ __device__ __forceinline__ uint32_t window(const fr::Fe& w, int j) {
   return __byte_perm(lo, hi, (4 + b) | (3 + b) << 4 | (2 + b) << 8 | (1 + b) << 12);
 }
 
-// Adds this lane's s32 digit sums of raw m into the 64-bit sums (each sum
-// has one owner lane) and zeroes them.
-__device__ __forceinline__ void flush(uint64_t* sums, int32_t (&acc)[5][4], int m, int lane) {
+// Adds this lane's s32 digit sums of raw m into the 64-bit byte columns
+// and zeroes them. Window column 35 r + j of word w goes to column 4 w + j
+// of sum m W + r; the padding columns (r = W) hold zeros.
+template <int W>
+__device__ __forceinline__ void flush(uint64_t* cols, int32_t (&acc)[Shape<W>::kNTiles][4], int m, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < 5; ++nt)
+  for (int nt = 0; nt < Shape<W>::kNTiles; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int w = g + 8 * (i >> 1), j = 8 * nt + 2 * t + (i & 1);
-      sums[(m * kRawWords + w) * kWins + j] += static_cast<uint32_t>(acc[nt][i]);
+      const int w = g + 8 * (i >> 1), col = 8 * nt + 2 * t + (i & 1);
+      const int r = col / kLiveWins, j = col - r * kLiveWins;
+      if (r < W)
+        atomicAdd(reinterpret_cast<unsigned long long*>(cols + (m * W + r) * kCols + 4 * w + j),
+                  static_cast<unsigned long long>(static_cast<uint32_t>(acc[nt][i])));
       acc[nt][i] = 0;
     }
 }
 
-// Pass 1. partial: (g * bpg, 8, kCols) byte-column sums a block.
+// Pass 1. wt: the weights, (8, g * half) for W = 1 (entry grp * half + y),
+// (8, g * 2 half) for W = 2 (entries bot and bot + half); x0, x1:
+// (8, g * 2 half); partial: (g * bpg, 8 W, kCols) byte-column sums a block.
+template <int W>
 __global__ void __launch_bounds__(kTile, 1)
-    acc_kernel(const int32_t* s, const int32_t* x0, const int32_t* x1, const int32_t* ark,
+    acc_kernel(const int32_t* wt, const int32_t* x0, const int32_t* x1, const int32_t* ark,
                uint64_t* partial, int64_t half, int64_t g, int64_t bpg) {
+  using S = Shape<W>;
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* raws = smem;                    // (kRows, kStride)
-  uint32_t* wins = raws + kRows * kStride;  // (kWins, kStride)
-  uint64_t* sums = reinterpret_cast<uint64_t*>(wins + kWins * kStride);  // (8, kRawWords, kWins)
+  uint32_t* wins = raws + kRows * kStride;  // (S::kWins, kStride)
+  uint64_t* cols = reinterpret_cast<uint64_t*>(wins + S::kWins * kStride);  // (S::kSums, kCols)
   const int tid = threadIdx.x, lane = tid & 31, m = tid >> 5;
   const int64_t grp = blockIdx.x / bpg;
   const int64_t bi = blockIdx.x - grp * bpg;
   const int64_t n_x = g * 2 * half;
-  const int64_t n_s = g * half;
+  const int64_t n_w = W == 1 ? g * half : n_x;
   const fr::Fe a = fr::load(ark, g, grp);
-  for (int i = tid; i < (kWins - kLiveWins) * kStride; i += kTile) wins[kLiveWins * kStride + i] = 0u;
-  for (int i = tid; i < 8 * kRawWords * kWins; i += kTile) sums[i] = 0u;
+  for (int i = tid; i < (S::kWins - W * kLiveWins) * kStride; i += kTile) wins[W * kLiveWins * kStride + i] = 0u;
+  for (int i = tid; i < S::kSums * kCols; i += kTile) cols[i] = 0u;
   __syncthreads();
 
   // this lane's rows for ldmatrix: matrices 0-3 from lanes 0-7, 8-15, ...
   const int mat = lane >> 3, r8 = lane & 7;
   const uint32_t* a_row = raws + (kRawWords * m + r8 + 8 * (mat & 1)) * kStride + 4 * (mat >> 1);
   const uint32_t* b_row = wins + (r8 + 8 * (mat >> 1)) * kStride + 4 * (mat & 1);
-  int32_t acc[5][4] = {};
+  int32_t acc[S::kNTiles][4] = {};
   const int64_t tiles = (half + kTile - 1) / kTile;
   int since_flush = 0;
   for (int64_t tile = bi; tile < tiles; tile += bpg) {
     const int64_t y = tile * kTile + tid;
     if (y < half) {
+      const int64_t bot = grp * 2 * half + y;
       fr::Fe u, v;
-      cipher_line(x0, x1, a, n_x, grp * 2 * half + y, half, u, v);
-      const fr::Fe w = fr::load(s, n_s, grp * half + y);
+      cipher_line(x0, x1, a, n_x, bot, half, u, v);
 #pragma unroll
-      for (int j = 0; j < kLiveWins; ++j) wins[j * kStride + tid] = window(w, j);
+      for (int r = 0; r < W; ++r) {
+        const fr::Fe w = fr::load(wt, n_w, (W == 1 ? grp * half + y : bot) + r * half);
+#pragma unroll
+        for (int j = 0; j < kLiveWins; ++j) wins[(kLiveWins * r + j) * kStride + tid] = window(w, j);
+      }
       const CipherPowers pw(u, v);
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
@@ -237,35 +278,31 @@ __global__ void __launch_bounds__(kTile, 1)
     __syncthreads();
 #pragma unroll 4
     for (int ks = 0; ks < kTile / 8; ++ks) {  // 8 points a step
-      uint32_t af[4], b01[4], b23[4], b4[2];
+      uint32_t af[4];
       ldsm_x4(af, a_row + 8 * ks);
-      ldsm_x4(b01, b_row + 8 * ks);
-      ldsm_x4(b23, b_row + 16 * kStride + 8 * ks);
-      ldsm_x2(b4, b_row + 32 * kStride + 8 * ks);
-      mma_u8(acc[0], af, b01[0], b01[1]);
-      mma_u8(acc[1], af, b01[2], b01[3]);
-      mma_u8(acc[2], af, b23[0], b23[1]);
-      mma_u8(acc[3], af, b23[2], b23[3]);
-      mma_u8(acc[4], af, b4[0], b4[1]);
+#pragma unroll
+      for (int p = 0; p < S::kNTiles / 2; ++p) {  // two tiles of 8 windows a load
+        uint32_t b[4];
+        ldsm_x4(b, b_row + 16 * p * kStride + 8 * ks);
+        mma_u8(acc[2 * p], af, b[0], b[1]);
+        mma_u8(acc[2 * p + 1], af, b[2], b[3]);
+      }
+      if (S::kNTiles & 1) {
+        uint32_t b[2];
+        ldsm_x2(b, b_row + 16 * (S::kNTiles / 2) * kStride + 8 * ks);
+        mma_u8(acc[S::kNTiles - 1], af, b[0], b[1]);
+      }
     }
     if (++since_flush == kFlushTiles) {
-      flush(sums, acc, m, lane);
+      flush<W>(cols, acc, m, lane);
       since_flush = 0;
     }
     __syncthreads();
   }
-  flush(sums, acc, m, lane);
+  flush<W>(cols, acc, m, lane);
   __syncthreads();
-  for (int i = tid; i < 8 * kCols; i += kTile) {
-    const int mm = i / kCols, c = i - mm * kCols;
-    uint64_t t = 0u;
-#pragma unroll
-    for (int w = 0; w < kRawWords; ++w) {
-      const int j = c - 4 * w;
-      if (j >= 0 && j < kWins) t += sums[(mm * kRawWords + w) * kWins + j];
-    }
-    partial[static_cast<int64_t>(blockIdx.x) * 8 * kCols + i] = t;
-  }
+  for (int i = tid; i < S::kSums * kCols; i += kTile)
+    partial[static_cast<int64_t>(blockIdx.x) * S::kSums * kCols + i] = cols[i];
 }
 
 // t <- (t + m p) / R, word by word, for the unique m < R with t + m p = 0
@@ -293,21 +330,23 @@ __device__ __forceinline__ void redc_shift(uint32_t (&t)[kWideWords]) {
   for (int k = 0; k < kWideWords; ++k) t[k] = k + fr::L < kWideWords ? t[k + fr::L < kWideWords ? k + fr::L : 0] : 0u;
 }
 
-// Pass 2: one block a group. scale: (8, 8) rows C(7, m) R^2 mod p; out:
-// (8, 8, g) canonical.
-__global__ void __launch_bounds__(kTile)
-    finish_kernel(const uint64_t* partial, const int32_t* scale, int32_t* out, int64_t g, int64_t bpg) {
-  __shared__ uint64_t cols[8 * kCols];
-  const int64_t grp = blockIdx.x;
-  for (int i = threadIdx.x; i < 8 * kCols; i += kTile) {
+// Sums nsums x kCols byte columns over the bpg partials of group grp into
+// cols (all threads of the block), then returns, in threads below nsums,
+// the plain value of sum threadIdx.x: the columns carried into one wide
+// integer, three REDCs (the weight carries R and each raw R^2), below 2p
+// (2^786 / R^3 + p).
+__device__ __forceinline__ fr::Fe sum_plain(const uint64_t* partial, uint64_t* cols, int nsums, int64_t grp,
+                                            int64_t bpg) {
+  for (int i = threadIdx.x; i < nsums * kCols; i += blockDim.x) {
     uint64_t t = 0u;
-    for (int64_t b = 0; b < bpg; ++b) t += partial[(grp * bpg + b) * 8 * kCols + i];
+    for (int64_t b = 0; b < bpg; ++b) t += partial[(grp * bpg + b) * nsums * kCols + i];
     cols[i] = t;
   }
   __syncthreads();
-  if (threadIdx.x >= 8) return;
-  const int m = threadIdx.x;
-  // sum_c cols[c] 2^(8 c) as 32-bit words; the sum is below 2^800
+  fr::Fe v = fr::zero();
+  if (static_cast<int>(threadIdx.x) >= nsums) return v;
+  const uint64_t* c = cols + threadIdx.x * kCols;
+  // sum_c c[c] 2^(8 c) as 32-bit words; the sum is below 2^800
   uint32_t t[kWideWords];
   uint64_t carry = 0u;
 #pragma unroll
@@ -315,58 +354,96 @@ __global__ void __launch_bounds__(kTile)
     uint32_t word = 0u;
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
-      const int c = 4 * k + b;
-      const uint64_t x = (c < kCols ? cols[m * kCols + c] : 0u) + carry;
+      const int cc = 4 * k + b;
+      const uint64_t x = (cc < kCols ? c[cc] : 0u) + carry;
       word |= static_cast<uint32_t>(x & 0xFFu) << (8 * b);
       carry = x >> 8;
     }
     t[k] = word;
   }
-  // S carries R and each raw R^2: three REDCs leave the plain value, below
-  // 2p (2^786 / R^3 + p); one product by C(7, m) R^2 gives C(7, m) Q_m R
   redc_shift(t);
   redc_shift(t);
   redc_shift(t);
-  fr::Fe v;
 #pragma unroll
   for (int l = 0; l < fr::L; ++l) v.v[l] = t[l];
-  fr::store(out + m * g, 8 * g, grp, fr::canonical(fr::mul(v, fr::load(scale + m * fr::L, 1, 0))));
+  return v;
 }
 
-}  // namespace gruen
+// C(7, k), k = 0..7
+__device__ __forceinline__ uint32_t binom7(int k) {
+  const int d = k < 4 ? k : 7 - k;
+  return d == 0 ? 1u : d == 1 ? 7u : d == 2 ? 21u : 35u;
+}
 
-// Pass 1 of the direct (pre-Gruen) cipher round in coefficient form. With
-// e = eq[bot], de = eq[top] - e, P(t) = (e + t de) (u + t v)^7, so
-// P_m = <e, C(7,m) raw_m> + <de, C(7,m-1) raw_(m-1)>, m = 0..8: per point
-// each raw is scaled by its binomial (adds only) and feeds two sums.
-__global__ void __launch_bounds__(kThreads)
-    cipher_coeff_acc_kernel(const int32_t* eq, const int32_t* x0, const int32_t* x1,
-                            const int32_t* ark, int32_t* partial, int64_t half, int64_t g,
-                            int64_t bpg) {
-  constexpr uint32_t kBinom[8] = {1, 7, 21, 35, 35, 21, 7, 1};
-  const int64_t grp = blockIdx.x / bpg;
-  const int64_t bi = blockIdx.x - grp * bpg;
-  const int64_t n_x = g * 2 * half;
-  const fr::Fe a = fr::load(ark, g, grp);
-  fr::Fe acc[9];
-#pragma unroll
-  for (int m = 0; m < 9; ++m) acc[m] = fr::zero();
-  for (int64_t y = bi * kThreads + threadIdx.x; y < half; y += bpg * kThreads) {
-    const int64_t bot = grp * 2 * half + y;
-    fr::Fe u, v;
-    cipher_line(x0, x1, a, n_x, bot, half, u, v);
-    const fr::Fe e = fr::load(eq, n_x, bot);
-    const fr::Fe de = fr::sub(fr::load(eq, n_x, bot + half), e);
-    const CipherPowers pw(u, v);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const fr::Fe c = fr::mul_small(pw.raw(k), kBinom[k]);
-      acc[k] = fr::add(acc[k], fr::mul(e, c));
-      acc[k + 1] = fr::add(acc[k + 1], fr::mul(de, c));
-    }
+// Pass 2 of the Gruen round: one block a group. out: (8, 8, g) canonical,
+// Q_m = C(7, m) <S, raw_m> in Montgomery form.
+__global__ void __launch_bounds__(kTile)
+    gruen_finish_kernel(const uint64_t* partial, int32_t* out, int64_t g, int64_t bpg) {
+  __shared__ uint64_t cols[8 * kCols];
+  const int64_t grp = blockIdx.x;
+  const fr::Fe v = sum_plain(partial, cols, 8, grp, bpg);
+  if (threadIdx.x >= 8) return;
+  const int m = threadIdx.x;
+  fr::store(out + m * g, 8 * g, grp, fr::canonical(fr::mul(fr::mul_small(v, binom7(m)), r2())));
+}
+
+// Pass 2 of the direct rounds: one block a group. t0 < 0: out (8, 9, g)
+// the coefficients c_0..c_8; else out (8, 9 - t0, g) the values P(t) at
+// t = t0..8. Canonical Montgomery form.
+__global__ void __launch_bounds__(kTile)
+    coeff_finish_kernel(const uint64_t* partial, int32_t* out, int64_t g, int64_t bpg, int t0) {
+  __shared__ uint64_t cols[16 * kCols];
+  __shared__ fr::Fe plain[16];  // A_m at 2 m, T_m at 2 m + 1
+  __shared__ fr::Fe coef[9];
+  const int64_t grp = blockIdx.x;
+  const int tid = threadIdx.x;
+  const fr::Fe v = sum_plain(partial, cols, 16, grp, bpg);
+  if (tid < 16) plain[tid] = v;
+  __syncthreads();
+  if (tid < 9) {  // c_m = C(7, m) A_m + C(7, m - 1) (T_(m-1) - A_(m-1)), to Montgomery form
+    const int m = tid;
+    fr::Fe c = m < 8 ? fr::mul_small(plain[2 * m], binom7(m)) : fr::zero();
+    if (m > 0) c = fr::add(c, fr::mul_small(fr::sub(plain[2 * m - 1], plain[2 * m - 2]), binom7(m - 1)));
+    coef[m] = fr::mul(c, r2());
   }
-  rsum::store_partial<9>(partial, acc);
+  __syncthreads();
+  if (t0 < 0) {
+    if (tid < 9) fr::store(out + tid * g, 9 * g, grp, fr::canonical(coef[tid]));
+    return;
+  }
+  const int n_out = 9 - t0;
+  if (tid >= n_out) return;
+  const uint32_t t = static_cast<uint32_t>(t0 + tid);
+  fr::Fe p = coef[8];  // Horner's rule; a multiple by t >= 1 is adds (mul_small), P(0) = c_0
+#pragma unroll
+  for (int m = 7; m >= 0; --m) p = fr::add(t == 0u ? fr::zero() : fr::mul_small(p, t), coef[m]);
+  fr::store(out + tid * g, n_out * g, grp, fr::canonical(p));
 }
+
+template <int W>
+int launch_acc(const void* wt, const void* x0, const void* x1, const void* ark, void* partial, int64_t half,
+               int64_t g, int64_t bpg, cudaStream_t st) {
+  constexpr size_t smem = Shape<W>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(acc_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  acc_kernel<W><<<static_cast<unsigned>(g * bpg), kTile, smem, st>>>(
+      static_cast<const int32_t*>(wt), static_cast<const int32_t*>(x0), static_cast<const int32_t*>(x1),
+      static_cast<const int32_t*>(ark), static_cast<uint64_t*>(partial), half, g, bpg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The direct rounds: pass 1 on two weight rows, then coeff_finish_kernel.
+int direct_round(const void* eq, const void* x0, const void* x1, const void* ark, void* partial, void* out,
+                 int64_t half, int64_t g, int64_t bpg, int t0, cudaStream_t st) {
+  const int err = launch_acc<2>(eq, x0, x1, ark, partial, half, g, bpg, st);
+  if (err != 0) return err;
+  coeff_finish_kernel<<<static_cast<unsigned>(g), kTile, 0, st>>>(static_cast<const uint64_t*>(partial),
+                                                                  static_cast<int32_t*>(out), g, bpg, t0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace deferred
 
 // Pass 1 of the identity round in coefficient form. With e = eq[bot],
 // de = eq[top] - e, u = x[bot], v = x[top] - u:
@@ -395,41 +472,41 @@ bool bad_geometry(int64_t half, int64_t g, int64_t bpg) { return half <= 0 || g 
 
 }  // namespace
 
-// s: (8, g * half); x0, x1: (8, g * 2 * half); ark: (8, g); scale: (8, 8)
-// rows C(7, m) R^2 mod p; partial: (g * bpg, 8, 100) 64-bit scratch; out:
-// (8, 8, g) canonical.
-extern "C" int gkr_gruen_acc(const void* s, const void* x0, const void* x1, const void* ark,
-                             const void* scale, void* partial, void* out, int64_t half, int64_t g,
-                             int64_t bpg, void* stream) {
+// s: (8, g * half); x0, x1: (8, g * 2 * half); ark: (8, g); partial:
+// (g * bpg, 8, 100) 64-bit scratch; out: (8, 8, g) canonical.
+extern "C" int gkr_gruen_acc(const void* s, const void* x0, const void* x1, const void* ark, void* partial,
+                             void* out, int64_t half, int64_t g, int64_t bpg, void* stream) {
   if (bad_geometry(half, g, bpg)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(gruen::acc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(gruen::kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  gruen::acc_kernel<<<static_cast<unsigned>(g * bpg), gruen::kTile, gruen::kSmemBytes, st>>>(
-      static_cast<const int32_t*>(s), static_cast<const int32_t*>(x0),
-      static_cast<const int32_t*>(x1), static_cast<const int32_t*>(ark),
-      static_cast<uint64_t*>(partial), half, g, bpg);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gruen::finish_kernel<<<static_cast<unsigned>(g), gruen::kTile, 0, st>>>(
-      static_cast<const uint64_t*>(partial), static_cast<const int32_t*>(scale),
-      static_cast<int32_t*>(out), g, bpg);
+  const int err = deferred::launch_acc<1>(s, x0, x1, ark, partial, half, g, bpg, st);
+  if (err != 0) return err;
+  deferred::gruen_finish_kernel<<<static_cast<unsigned>(g), deferred::kTile, 0, st>>>(
+      static_cast<const uint64_t*>(partial), static_cast<int32_t*>(out), g, bpg);
   return static_cast<int>(cudaGetLastError());
 }
 
-// eq, x0, x1: (8, g * 2 * half); ark: (8, g); partial: (g * bpg, 9, 8)
-// scratch; out: (8, 9, g).
+// eq, x0, x1: (8, g * 2 * half); ark: (8, g); partial: (g * bpg, 16, 100)
+// 64-bit scratch; out: (8, 9, g) canonical.
 extern "C" int gkr_cipher_coeff_acc(const void* eq, const void* x0, const void* x1,
                                     const void* ark, void* partial, void* out, int64_t half,
                                     int64_t g, int64_t bpg, void* stream) {
   if (bad_geometry(half, g, bpg)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cipher_coeff_acc_kernel<<<static_cast<unsigned>(g * bpg), kThreads, 0, st>>>(
-      static_cast<const int32_t*>(eq), static_cast<const int32_t*>(x0),
-      static_cast<const int32_t*>(x1), static_cast<const int32_t*>(ark),
-      static_cast<int32_t*>(partial), half, g, bpg);
-  return rsum::finish<9>(partial, out, g, bpg, st);
+  return deferred::direct_round(eq, x0, x1, ark, partial, out, half, g, bpg, -1,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// The round polynomial's values at t = skip_t0..8 (t = 1..8 with the claim
+// trick, where the caller derives P(0) = claim - P(1)). eq, x0, x1:
+// (8, g * 2 * half); ark: (8, g); n_evals = 9 (degree 7 + 2); partial:
+// (g * bpg, 16, 100) 64-bit scratch; out: (8, n_evals - skip_t0, g)
+// canonical.
+extern "C" int gkr_cipher_partial_evals(const void* eq, const void* x0, const void* x1,
+                                        const void* ark, void* partial, void* out, int64_t half,
+                                        int64_t g, int64_t bpg, int64_t n_evals, int64_t skip_t0,
+                                        void* stream) {
+  if (bad_geometry(half, g, bpg) || n_evals != 9) return static_cast<int>(cudaErrorInvalidValue);
+  return deferred::direct_round(eq, x0, x1, ark, partial, out, half, g, bpg, skip_t0 ? 1 : 0,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // eq, x: (8, g * 2 * half); partial: (g * bpg, 3, 8) scratch; out: (8, 3, g).

@@ -39,7 +39,7 @@ SIGNATURES = {
     "gkr_fold": (_P, _P, _I, _P, _I, _I, _P),
     "gkr_suffix_step": (_P, _P, _P, _I, _I, _P),
     "gkr_multi_eq": (_P, _P, _P, _I, _I, _I, _P),
-    "gkr_gruen_acc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "gkr_gruen_acc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gkr_identity_acc": (_P, _P, _P, _P, _I, _I, _I, _P),
     "gkr_gruen_round": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     "gkr_cipher_coeff_acc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),

@@ -20,7 +20,7 @@ mul_scalar              csrc/elementwise.cu     mul_scalar (:1616)
 gruen_acc               csrc/round_acc.cu       cipher_gruen_acc (:740) + finish_gruen_acc
 cipher_coeff_acc        csrc/round_acc.cu       cipher_coeff_acc (:644) + finish_coeff_acc
 identity_acc            csrc/round_acc.cu       identity_coeff_acc (:651) + finish_coeff_acc
-cipher_partial_evals    csrc/partial_evals.cu   cipher_partial_evals (:377), cipher_partial_evals_g (:1211)
+cipher_partial_evals    csrc/round_acc.cu       cipher_partial_evals (:377), cipher_partial_evals_g (:1211)
 identity_partial_evals  csrc/partial_evals.cu   identity_partial_evals (:411), identity_partial_evals_g (:1223)
 gruen_round_scalar      csrc/gruen_round.cu     gruen_round_scalar (:1446)
 pow7                    csrc/sbox.cu            pow7 (:71)
@@ -37,6 +37,11 @@ the CPU. Callers reach the wrappers through this module's attributes
 
 Tables are group-major: an (8, G*n) table holds G groups of n entries, and
 a per-group scalar is an (8, G) tensor.
+
+The three cipher rounds (``gruen_acc``, ``cipher_coeff_acc``,
+``cipher_partial_evals``) share one pass 1 in ``csrc/round_acc.cu``: the
+reduction deferred past the sum over the points, the sum a byte-digit
+contraction on the tensor cores; they return canonical values.
 """
 
 from __future__ import annotations
@@ -48,16 +53,18 @@ from functools import lru_cache
 import torch
 
 from ..fields import fr
-from ..fields.bn254 import L, P, R1
+from ..fields.bn254 import L
 from ..hashes.ark import arks_mont
 from . import build
 
 MIMC_ROUNDS = 91
-_ACC_THREADS = 256  # threads per block of csrc/round_acc.cu
-GRUEN_TILE = 256  # points a tile of the Gruen round's pass 1 (csrc/round_acc.cu gruen::kTile)
-GRUEN_COLS = 100  # byte columns a raw in its partials (gruen::kCols)
-GRUEN_FLUSH_POINTS = 32 * GRUEN_TILE  # s32 digit sums flushed this often (gruen::kFlushTiles tiles)
-GRUEN_WIDE_WORDS = 26  # 32-bit words of a raw's exact sum in pass 2 (gruen::kWideWords)
+_ACC_THREADS = 256  # threads per block of the identity rounds (csrc/reduce.cuh rsum::kThreads)
+# the cipher rounds' deferred contraction (csrc/round_acc.cu, namespace deferred)
+DEFERRED_TILE = 256  # points a tile of pass 1 (deferred::kTile)
+DEFERRED_WINDOWS = 35  # byte windows of a weight with a nonzero byte (deferred::kLiveWins)
+DEFERRED_COLS = 100  # byte columns a sum in the partials (deferred::kCols)
+DEFERRED_FLUSH_POINTS = 32 * DEFERRED_TILE  # s32 digit sums flushed this often (deferred::kFlushTiles tiles)
+DEFERRED_WIDE_WORDS = 26  # 32-bit words of a sum's exact integer in pass 2 (deferred::kWideWords)
 
 # wrapper -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -72,9 +79,10 @@ KERNELS = {
     "mul_scalar": ("gkr_mimc_tpu_torch/csrc/elementwise.cu", "gkr_mimc_tpu/ops/kernels.py:1616"),
     "gruen_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu",
                   "gkr_mimc_tpu/ops/kernels.py:740 cipher_gruen_acc (call :777), :813 finish_gruen_acc"),
-    "cipher_coeff_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu", "gkr_mimc_tpu/ops/kernels.py:644"),
+    "cipher_coeff_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu",
+                         "gkr_mimc_tpu/ops/kernels.py:644 cipher_coeff_acc (call :630), :1057 finish_coeff_acc"),
     "identity_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu", "gkr_mimc_tpu/ops/kernels.py:651"),
-    "cipher_partial_evals": ("gkr_mimc_tpu_torch/csrc/partial_evals.cu",
+    "cipher_partial_evals": ("gkr_mimc_tpu_torch/csrc/round_acc.cu",
                              "gkr_mimc_tpu/ops/kernels.py:377 cipher_partial_evals, "
                              ":1211 cipher_partial_evals_g"),
     "identity_partial_evals": ("gkr_mimc_tpu_torch/csrc/partial_evals.cu",
@@ -156,14 +164,6 @@ def _empty(shape, like: torch.Tensor) -> torch.Tensor:
 def _binom7(device: torch.device) -> torch.Tensor:
     """C(7, m), m = 0..7, in Montgomery form: (8 limbs, 8)."""
     return fr.encode_mont_ints([math.comb(7, m) for m in range(8)], device)
-
-
-@lru_cache(maxsize=None)
-def _binom7_r2_rows(device: torch.device) -> torch.Tensor:
-    """C(7, m) R^2 mod p, m = 0..7, as (8, 8 limbs) rows: one Montgomery
-    product by it turns a plain value into C(7, m) times its Montgomery
-    form."""
-    return fr.encode_mont_ints([math.comb(7, m) * R1 % P for m in range(8)], device).T.contiguous()
 
 
 @lru_cache(maxsize=None)
@@ -453,6 +453,29 @@ def _cipher_raws(u, v) -> torch.Tensor:
     return torch.stack(muls([(u6, u), (u6, v), (uv2, u3), (uv3, u), (uv3, v), (uv2, v3), (v6, u), (v6, v)]), 1)
 
 
+def _deferred_blocks(half: int, g: int, device: torch.device) -> int:
+    """Blocks a group of the deferred pass 1: one block an SM in all (a
+    block takes 181,120 B or 220,800 B of shared memory), at most one a
+    tile."""
+    return max(1, min(-(-half // DEFERRED_TILE), -(-_sm_count(device) // g)))
+
+
+def _deferred_partial(blocks: int, rows: int, like: torch.Tensor) -> torch.Tensor:
+    """Scratch for the 64-bit byte-column sums of the deferred pass 1 with
+    ``rows`` weight rows: (blocks, 8 * rows, DEFERRED_COLS)."""
+    return torch.empty((blocks, 8 * rows, DEFERRED_COLS), dtype=torch.int64, device=like.device)
+
+
+def _direct_round(name: str, entry: str, n_out: int, g: int, half: int, ins, *extra) -> torch.Tensor:
+    """Launch a direct cipher round (pass 1 on the weight rows eq_bot and
+    eq_top, then its finisher) -> (8, n_out, G) canonical."""
+    bpg = _deferred_blocks(half, g, ins[0].device)
+    partial = _deferred_partial(g * bpg, 2, ins[0])
+    out = _empty((L, n_out, g), ins[0])
+    _launch(name, entry, ins[0].device, *map(_ptr, ins), _ptr(partial), _ptr(out), half, g, bpg, *extra)
+    return out
+
+
 def gruen_acc(s: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor, ark: torch.Tensor) -> torch.Tensor:
     """Gruen cipher round: s (8, G*n/2) suffix eq weights, x0, x1 (8, G*n),
     ark (8, G) -> Q (8, 8, G) canonical, Q_m = C(7,m) * sum_y S[y]
@@ -464,12 +487,11 @@ def gruen_acc(s: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor, ark: torch.Te
     _expect("gruen_acc", s, (L, g * half))
     if _on_cpu("gruen_acc", s, x0, x1, ark):
         return gruen_acc_plain(s, x0, x1, ark)
-    # one block an SM in all: pass 1 takes 215,680 B of shared memory a block
-    bpg = max(1, min(-(-half // GRUEN_TILE), -(-_sm_count(s.device) // g)))
-    partial = torch.empty((g * bpg, 8, GRUEN_COLS), dtype=torch.int64, device=s.device)
+    bpg = _deferred_blocks(half, g, s.device)
+    partial = _deferred_partial(g * bpg, 1, s)
     out = _empty((L, 8, g), s)
-    _launch("gruen_acc", "gkr_gruen_acc", s.device, _ptr(s), _ptr(x0), _ptr(x1), _ptr(ark),
-            _ptr(_binom7_r2_rows(s.device)), _ptr(partial), _ptr(out), half, g, bpg)
+    _launch("gruen_acc", "gkr_gruen_acc", s.device, _ptr(s), _ptr(x0), _ptr(x1), _ptr(ark), _ptr(partial),
+            _ptr(out), half, g, bpg)
     return out
 
 
@@ -483,14 +505,15 @@ def gruen_acc_plain(s, x0, x1, ark):
 def cipher_coeff_acc(eq: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor, ark: torch.Tensor,
                      g: int) -> torch.Tensor:
     """Direct cipher round in coefficient form: eq, x0, x1 (8, G*n), ark
-    (8, G) -> P (8, 9, G). With e = eq_bot, de = eq_top - e and u, v as in
-    ``gruen_acc``, P(t) = (e + t de) (u + t v)^7 summed over the half cube:
-    P_m = <e, C(7,m) raw_m> + <de, C(7,m-1) raw_(m-1)>, raw_k = u^(7-k) v^k."""
+    (8, G) -> P (8, 9, G) canonical. With e = eq_bot, de = eq_top - e and
+    u, v as in ``gruen_acc``, P(t) = (e + t de) (u + t v)^7 summed over the
+    half cube: P_m = <e, C(7,m) raw_m> + <de, C(7,m-1) raw_(m-1)>,
+    raw_k = u^(7-k) v^k."""
     _expect("cipher_coeff_acc", ark, (L, g))
     half = _round_geometry("cipher_coeff_acc", [eq, x0, x1], g)
     if _on_cpu("cipher_coeff_acc", eq, x0, x1, ark):
         return cipher_coeff_acc_plain(eq, x0, x1, ark, g)
-    return _round_sums("cipher_coeff_acc", "gkr_cipher_coeff_acc", 9, g, half, [eq, x0, x1, ark])
+    return _direct_round("cipher_coeff_acc", "gkr_cipher_coeff_acc", 9, g, half, [eq, x0, x1, ark])
 
 
 def cipher_coeff_acc_plain(eq, x0, x1, ark, g):
@@ -500,7 +523,7 @@ def cipher_coeff_acc_plain(eq, x0, x1, ark, g):
     e_sums = fr.reduce_sum(fr.mul(eb.unsqueeze(1), scaled), 2)  # (8, 8, G)
     de_sums = fr.reduce_sum(fr.mul(fr.sub(et, eb).unsqueeze(1), scaled), 2)
     zero = fr.zeros((1, g), eq.device)
-    return fr.add(torch.cat([e_sums, zero], 1), torch.cat([zero, de_sums], 1))
+    return fr.canonicalize(fr.add(torch.cat([e_sums, zero], 1), torch.cat([zero, de_sums], 1)))
 
 
 def identity_acc(eq: torch.Tensor, x: torch.Tensor, g: int) -> torch.Tensor:
@@ -552,19 +575,28 @@ def _check_evals(name: str, n_evals: int, want: int) -> None:
 def cipher_partial_evals(eq: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor, ark: torch.Tensor,
                          g: int, n_evals: int, skip_t0: bool) -> torch.Tensor:
     """Cipher round in evaluation form: eq, x0, x1 (8, G*n), ark (8, G) ->
-    (8, n_evals - skip_t0, G), column t the sum over the half cube of
-    eq_t * (x0_t + x1_t + ark)^7, a_t = a_bot + t (a_top - a_bot), at
-    t = 0..n_evals-1 (1..n_evals-1 with skip_t0: the claim trick)."""
+    (8, n_evals - skip_t0, G) canonical, column t the sum over the half
+    cube of eq_t * (x0_t + x1_t + ark)^7, a_t = a_bot + t (a_top - a_bot),
+    at t = 0..n_evals-1 (1..n_evals-1 with skip_t0: the claim trick). The
+    kernel sums the coefficients as ``cipher_coeff_acc`` does and evaluates
+    them at t."""
     _check_evals("cipher_partial_evals", n_evals, CIPHER_EVALS)
     _expect("cipher_partial_evals", ark, (L, g))
     half = _round_geometry("cipher_partial_evals", [eq, x0, x1], g)
     if _on_cpu("cipher_partial_evals", eq, x0, x1, ark):
         return cipher_partial_evals_plain(eq, x0, x1, ark, g, n_evals, skip_t0)
-    return _round_sums("cipher_partial_evals", "gkr_cipher_partial_evals", n_evals - bool(skip_t0), g,
-                       half, [eq, x0, x1, ark], n_evals, int(bool(skip_t0)))
+    return _direct_round("cipher_partial_evals", "gkr_cipher_partial_evals", n_evals - bool(skip_t0), g,
+                         half, [eq, x0, x1, ark], n_evals, int(bool(skip_t0)))
 
 
 def cipher_partial_evals_plain(eq, x0, x1, ark, g, n_evals, skip_t0):
+    return fr.canonicalize(cipher_evals_per_t(eq, x0, x1, ark, g, n_evals, skip_t0))
+
+
+def cipher_evals_per_t(eq, x0, x1, ark, g, n_evals, skip_t0):
+    """The cipher round's sums at each t, the S-box at every t (lazy, below
+    2p): the function of the per-t kernel that the multiply probe runs
+    (csrc/partial_evals.cu, ``probes.cipher_pe_variant``)."""
     e, u, w = stack_t(torch.stack([eq, x0, x1], 1).reshape(L, 3, g, -1), n_evals, skip_t0).unbind(1)
     gate = fr.pow7(fr.add(fr.add(w, ark.reshape(L, 1, g, 1)), u))
     return fr.reduce_sum(fr.mul(e, gate), 2)  # (8, n_out, G)

@@ -1,6 +1,6 @@
 """Compare checkouts of the PyTorch + CUDA port on one card, in turns.
 
-    python3 scripts/torch_ab_trees.py [--bn 22] ROOT [ROOT ...]
+    python3 scripts/torch_ab_trees.py [--bn 22] [--round-paths] ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout (for example a parent commit unpacked
 by ``git archive`` beside this one). For each ROOT, in the order given
@@ -13,8 +13,11 @@ then a second process runs that checkout's
 ``scripts/torch_profile_layers.py bn`` (one cipher layer's wall time,
 device time and busy share). Every line a child prints is passed on,
 prefixed with ``[i ROOT]``. Between phases 2 and 5 it times ``mimc_hash``
-at 1 and 9 words, whose slope is the hash chain's time an S-box. Needs a
-CUDA device; exits non-zero if a child fails.
+at 1 and 9 words, whose slope is the hash chain's time an S-box. With
+``--round-paths`` each child also runs that checkout's phase 7 right after
+phase 5 (phase 5's witness proven again on the "coeff" and "evals" round
+paths: prove times, equal proof vectors, launch counts). Needs a CUDA
+device; exits non-zero if a child fails.
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ rng = np.random.default_rng(7)
 ms = [C.time_kernel(K.mimc_hash, (C.rand_lazy(rng, (k,), dev),)) for k in (1, 9)]
 C.log(f"# chain slope: mimc_hash K=1 {{ms[0]:.4f}} ms, K=9 {{ms[1]:.4f}} ms, "
       f"{{(ms[1] - ms[0]) * 1e6 / (8 * K.MIMC_ROUNDS):.1f}} ns an S-box")
-C.phase_main({bn}, dev, card)
+main = C.phase_main({bn}, dev, card)
+if {round_paths}:
+    C.phase_round_paths_main({bn}, main, dev, card)
 """
 
 
@@ -59,12 +64,15 @@ def run(label: str, cmd: list, cwd: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bn", type=int, default=22, help="log2 of the hashes of the main path and the profiled layer")
+    ap.add_argument("--round-paths", action="store_true",
+                    help="also run phase 7 (the coeff and evals round paths) after phase 5")
     ap.add_argument("roots", nargs="+", help="checkout roots, run in this order")
     args = ap.parse_args()
     for i, root in enumerate(args.roots):
         root = Path(root).resolve()
         label = f"{i} {root.name}"
-        run(label, [sys.executable, "-c", CHILD.format(root=str(root), bn=args.bn)], root)
+        run(label, [sys.executable, "-c", CHILD.format(root=str(root), bn=args.bn, round_paths=args.round_paths)],
+            root)
         run(label, [sys.executable, str(root / "scripts" / "torch_profile_layers.py"), str(args.bn)], root)
     return 0
 

@@ -2,8 +2,9 @@
 
     python3 scripts/torch_profile_layers.py [bn]      (on a CUDA device; bn 22 by default)
 
-Proves one cipher layer (single claim, Gruen head rounds) and the 91-claim
-identity layer of the MiMC circuit at 2^bn instances, once unprofiled for
+Proves one cipher layer (single claim) on each head-round path (Gruen,
+"coeff" and "evals") and the 91-claim identity layer of the MiMC circuit
+at 2^bn instances, once unprofiled for
 the wall time and once under torch.profiler. Prints per layer: wall ms,
 device ms (the sum over CUDA kernel events only, so an aten op and the
 kernel it launched count once), the device busy share, the number of
@@ -48,6 +49,10 @@ def main() -> int:
     claims91 = fr.encode_mont_ints(random_fr_array(91), dev)
     layers = {
         "cipher_layer": lambda: sp.prove([a[2], a[61]], qps, fr.encode_mont_ints([5], dev), c[60].gate),
+        "cipher_layer coeff": lambda: sp.prove([a[2], a[61]], qps, fr.encode_mont_ints([5], dev), c[60].gate,
+                                               rounds="coeff"),
+        "cipher_layer evals": lambda: sp.prove([a[2], a[61]], qps, fr.encode_mont_ints([5], dev), c[60].gate,
+                                               rounds="evals"),
         "identity_layer": lambda: sp.prove([a[0]], qps91, claims91, c[2].gate),
     }
     for name, fn in layers.items():

@@ -40,6 +40,9 @@ def _cases(rng, dev):
     two_p = 2 * Pr.LAZY_EDGES[5]  # LAZY_EDGES[5] is p
     top = fr._limb_tensor([two_p - 1] * 32, dev)
     cyc = fr._limb_tensor([Pr.LAZY_EDGES[i % len(Pr.LAZY_EDGES)] for i in range(64)], dev)
+    direct_edges = [(top, top, top, top[:, :1].contiguous(), 1),
+                    (top, cyc[:, :32].contiguous(), cyc[:, 32:].contiguous(), top[:, :1].contiguous(), 1),
+                    (cyc, cyc.flip(1).contiguous(), cyc, cyc[:, 3:5].contiguous(), 2)]
     return {
         "mimc_witness": [(r(1), r(1), arks), (r(300), r(300), arks)],
         "mimc_hash": [(r(1),), (r(9),), (r(130),)],
@@ -60,11 +63,16 @@ def _cases(rng, dev):
                       (top[:, :16].contiguous(), cyc[:, :32].contiguous(), cyc[:, 32:].contiguous(),
                        cyc[:, 3:5].contiguous()),
                       (r(4 << 19), r(4 << 20), r(4 << 20), r(4))],
+        # the direct rounds share gruen_acc's pass 1: the same edges (eq = 2p - 1, or cycled
+        # over the edges at G = 2) and the flush-interval case
         "cipher_coeff_acc": [(r(2), r(2), r(2), r(1), 1), (r(3 * 1024), r(3 * 1024), r(3 * 1024), r(3), 3),
-                             (r(1 << 16), r(1 << 16), r(1 << 16), r(1), 1)],
+                             (r(1 << 16), r(1 << 16), r(1 << 16), r(1), 1)] + direct_edges
+                            + [(r(4 << 20), r(4 << 20), r(4 << 20), r(4), 4)],
         "identity_acc": [(r(2), r(2), 1), (r(3 * 1024), r(3 * 1024), 3), (r(1 << 16), r(1 << 16), 1)],
         "cipher_partial_evals": [(r(2), r(2), r(2), r(1), 1, 9, False), (r(4 * 512), r(4 * 512), r(4 * 512), r(4), 4, 9, True),
-                                 (r(1 << 16), r(1 << 16), r(1 << 16), r(1), 1, 9, True)],
+                                 (r(1 << 16), r(1 << 16), r(1 << 16), r(1), 1, 9, True)]
+                                + [e + (9, skip) for e in direct_edges for skip in (False, True)]
+                                + [(r(4 << 20), r(4 << 20), r(4 << 20), r(4), 4, 9, True)],
         "identity_partial_evals": [(r(2), r(2), 1, 3, True), (r(4 * 512), r(4 * 512), 4, 3, False),
                                    (r(1 << 16), r(1 << 16), 1, 3, True)],
         "pow7": [(r(1),), (r(300),), (r(1 << 16),)],
@@ -108,7 +116,8 @@ def test_probe_matches_plain(cuda_device, name):
 def test_mul_ptx_and_square_equal_mul_on_edges(cuda_device):
     """fr::mul_ptx, fr::mul_fips, fr::square and fr::square_fips give
     fr::mul's integers on every pair of lazy-range edge values; the mul_ptx
-    partial evals equal the production kernel's."""
+    partial evals (per t, lazy) equal the production kernel's (deferred,
+    canonical) once canonical."""
     edges = Pr.LAZY_EDGES
     a = fr._limb_tensor([x for x in edges for _ in edges], cuda_device)
     b = fr._limb_tensor([y for _ in edges for y in edges], cuda_device)
@@ -122,4 +131,4 @@ def test_mul_ptx_and_square_equal_mul_on_edges(cuda_device):
     ark = fr.encode_mont_ints([145646], cuda_device)
     v1 = K.cipher_partial_evals(eq, x0, x1, ark, 1, 9, False)
     for threads in Pr.PE_THREADS:
-        assert torch.equal(Pr.cipher_pe_variant(eq, x0, x1, ark, threads), v1)
+        assert torch.equal(fr.canonicalize(Pr.cipher_pe_variant(eq, x0, x1, ark, threads)), v1)

@@ -1,15 +1,15 @@
 """The Gruen round's deferred-reduction algorithm (csrc/round_acc.cu,
-namespace gruen) as a Python-int model, held equal to the plain twin
-``gruen_acc_plain``.
+namespace deferred, one weight row) as a Python-int model, held equal to
+the plain twin ``gruen_acc_plain``.
 
 The CUDA kernel cannot run here. This model follows its arithmetic step by
 step: the 8 raws u^(7-m) v^m left unreduced (512-bit products of the same
 factors), their words and the byte windows of S, the per-point digit sums
 of the tensor-core contraction (byte 4 w + q of a raw times byte j - q of S,
-weight 2^(8 (4 w + j))), the s32 sums flushed every GRUEN_FLUSH_POINTS
+weight 2^(8 (4 w + j))), the s32 sums flushed every DEFERRED_FLUSH_POINTS
 points, the 100 byte columns of a block's partial, the carry into one wide
-integer of GRUEN_WIDE_WORDS words, three REDCs and the product by
-C(7, m) R^2, canonical. It checks each headroom the kernel relies on as it
+integer of DEFERRED_WIDE_WORDS words, three REDCs, the multiple by C(7, m)
+and the product by R^2, canonical. It checks each headroom the kernel relies on as it
 goes.
 """
 
@@ -20,12 +20,12 @@ import pytest
 import torch
 
 from gkr_mimc_tpu_torch.fields import fr
-from gkr_mimc_tpu_torch.fields.bn254 import NPRIME, P, R1
+from gkr_mimc_tpu_torch.fields.bn254 import NPRIME, P, R2
 from gkr_mimc_tpu_torch.ops import kernels as K
 from gkr_mimc_tpu_torch.ops.probes import LAZY_EDGES
 
 R = 1 << 256
-RAW_WORDS, WINDOWS, COLS = 16, 40, K.GRUEN_COLS
+RAW_WORDS, WINDOWS, COLS = 16, 40, K.DEFERRED_COLS
 
 
 def _redc(t: int) -> int:
@@ -82,10 +82,11 @@ def _columns(d: np.ndarray) -> list:
 
 
 def _finish(cols: list, m: int) -> int:
-    """Pass 2 of one raw: carry the columns into GRUEN_WIDE_WORDS 32-bit
-    words, three REDCs, one product by C(7, m) R^2, canonical."""
+    """Pass 2 of one raw: carry the columns into DEFERRED_WIDE_WORDS 32-bit
+    words, three REDCs, C(7, m) times it mod 2p, one product by R^2,
+    canonical."""
     words, carry = [], 0
-    for k in range(K.GRUEN_WIDE_WORDS):
+    for k in range(K.DEFERRED_WIDE_WORDS):
         word = 0
         for b in range(4):
             c = 4 * k + b
@@ -96,15 +97,15 @@ def _finish(cols: list, m: int) -> int:
     assert carry == 0
     t = sum(w << (32 * k) for k, w in enumerate(words))
     for _ in range(3):
-        assert t + (R - 1) * P < 1 << (32 * K.GRUEN_WIDE_WORDS)
+        assert t + (R - 1) * P < 1 << (32 * K.DEFERRED_WIDE_WORDS)
         t = _redc(t)
     assert t < 2 * P
-    q = _redc(t * (math.comb(7, m) * R1 * R1 % P))
+    q = _redc((math.comb(7, m) * t % (2 * P)) * R2)
     assert q < 2 * P
     return q - P if q >= P else q
 
 
-def deferred_model(s, x0, x1, ark, tile=K.GRUEN_TILE, flush_points=K.GRUEN_FLUSH_POINTS):
+def deferred_model(s, x0, x1, ark, tile=K.DEFERRED_TILE, flush_points=K.DEFERRED_FLUSH_POINTS):
     """Q (8 coefficients, G) canonical ints, by the kernel's arithmetic."""
     g = ark.shape[-1]
     factors = [(fr.limb_values(a.reshape(8, -1)), fr.limb_values(b.reshape(8, -1)))
@@ -165,9 +166,9 @@ def test_deferred_model_at_lazy_edges_and_headroom():
         ark = fr._limb_tensor([a])
         assert deferred_model(s, x0, x1, ark) == _plain_ints(s, x0, x1, ark)
     # headroom of the CUDA constants
-    assert K.GRUEN_FLUSH_POINTS % K.GRUEN_TILE == 0
-    assert K.GRUEN_FLUSH_POINTS * 4 * 255**2 < 1 << 31
+    assert K.DEFERRED_FLUSH_POINTS % K.DEFERRED_TILE == 0
+    assert K.DEFERRED_FLUSH_POINTS * 4 * 255**2 < 1 << 31
     points = 1 << 30
     assert points * 32 * 255**2 < 1 << 64  # a byte column: at most 32 byte pairs a point
-    assert points * (2 * P) * (4 * P * P) + (R - 1) * P < 1 << (32 * K.GRUEN_WIDE_WORDS)
+    assert points * (2 * P) * (4 * P * P) + (R - 1) * P < 1 << (32 * K.DEFERRED_WIDE_WORDS)
     assert (1 << 800) > points * (2 * P) * (4 * P * P)  # finish_kernel's comment
