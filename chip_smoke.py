@@ -9,16 +9,19 @@ nvcc per source, in parallel), then:
    the build time and nvcc's register report, with a summary line of the
    registers, spills and shared memory of the cipher rounds' deferred
    pass 1 (one and two weight rows), its two finishers and the hash-chain
-   kernels;
+   kernels (the tail rounds' two gates among them);
 2. every kernel against its plain torch twin on the card, bit for bit, at
    small shapes (G = 1, 2, 4; both claim-trick settings of the partial
    evaluations; the fold at 3 tables; multi_eq at one claim; the S-boxes
    and the three cipher rounds at the lazy representatives' edges; the
    cipher rounds where a block sums more points than one flush interval of
-   their digit sums) and
+   their digit sums; the tail rounds of both gates at G = 1 and 4, at the
+   main path's 2^8 entries, a single round, the largest tail and the lazy
+   edges) and
    at the main path's shapes (timed, kernel and plain, beside the least
    time the card could take for the same work), some also at a second
-   shape; the hash chain's ns a product;
+   shape; the hash chain's ns a product, and the tail rounds' chain floor
+   (log2(m) hashes of their coefficients);
 3. golden transcripts: MimcHash([12]) and tests/golden/transcripts.json,
    with tail_bits 8 and 1;
 4. a full GKR walk at bn = 14 and a grouped walk of G = 2 instances at
@@ -65,8 +68,9 @@ just before it: the kernels of the default path from phase 5,
 cipher_coeff_acc from phase 7's coeff run, the partial evaluations from
 its evals run, mul_scalar (which builds single-claim eq tables below
 2^13 entries only) from phase 4's coeff walk at bn = 12, pow7 (the
-hashers' S-box) from phase 8, and the six probes from phase 9's run of
-the scripts' counterparts.
+hashers' S-box) and cipher_layer (the generic witness's cipher layers;
+the MiMC walk runs its tails, gate included, in tail_rounds) from phase
+8, and the six probes from phase 9's run of the scripts' counterparts.
 
 Prints one JSON line of per-kernel results, then the nvidia-smi line, then
 {"ok": true, "device": {...}} as the last line. Exits non-zero on any
@@ -146,9 +150,10 @@ def card_line() -> str:
 
 # kernels whose registers, spills and shared memory phase 1 logs by name
 # (parts of their mangled names): the cipher rounds' deferred pass 1 (both
-# instantiations) and its finishers, and the hash-chain kernels
+# instantiations) and its finishers, and the hash-chain kernels (the tail
+# rounds' both gates among them)
 REGISTER_WATCH = ("8deferred10acc_kernel", "8deferred19gruen_finish_kernel", "8deferred19coeff_finish_kernel",
-                  "gruen_round_kernel", "mimc_hash_kernel")
+                  "gruen_round_kernel", "mimc_hash_kernel", "tail_kernel")
 
 
 def ptxas_usage(text: str) -> dict:
@@ -286,6 +291,9 @@ def kernel_cases(bn: int, dev, rng):
     def r(*shape):
         return rand_lazy(rng, shape, dev)
 
+    def tail_args(k, g, m):  # eq and k tables (8, G, m); an ark for the cipher gate (k = 2)
+        return (r(g, m), [r(g, m) for _ in range(k)], q() if k == 2 else None)
+
     def fold_args(nt, g, n_):
         return ([r(g * n_) for _ in range(nt)], r(g))
 
@@ -325,6 +333,15 @@ def kernel_cases(bn: int, dev, rng):
                    (top, cyc, cyc.flip(1).contiguous(), top[:, :1].contiguous()),
                    (top[:, :32].contiguous(), cyc[:, :64].contiguous(), cyc[:, 64:].contiguous(),
                     cyc[:, 3:5].contiguous())]
+    # the tail rounds at the lazy edges: every input 2p - 1 (m = 64), and the
+    # tables cycled over the edges with each edge as ark (m = 128; G = 4 x 2)
+    def lanes(x, g):
+        return x.reshape(L, g, -1).contiguous()
+
+    tail_edges = [(lanes(top, 1), [lanes(top, 1)] * 2, top[:, 0].contiguous()),
+                  (lanes(cyc, 1), [lanes(cyc.flip(1), 1), lanes(cyc, 1)], ark_edges[8]),
+                  (lanes(cyc[:, :8], 4), [lanes(cyc[:, 8:16], 4)], None)]
+    tail_edges += [(lanes(cyc[:, :8], 4), [lanes(cyc[:, 8:16], 4), lanes(cyc[:, 16:24], 4)], a) for a in ark_edges]
     # the direct rounds at the lazy edges: every input 2p - 1; eq = 2p - 1
     # against x0, x1 and ark cycled over the edges; eq cycled too (G = 2)
     direct_edges = [(top[:, :32].contiguous(), top[:, :32].contiguous(), top[:, :32].contiguous(),
@@ -380,6 +397,11 @@ def kernel_cases(bn: int, dev, rng):
         ("cipher_layer", [(r(1), r(1), q()), (r(3), r(3), q()), (r(100003), r(100003), q())]
          + [(el, er, a) for a in ark_edges],
          lambda: (r(n), r(n), q())),
+        # both gates at G = 1 and 4, the main path's 2^8 entries and a single
+        # round, the largest tail (2^10, 96 KB of tables) and the lazy edges
+        ("tail_rounds", [tail_args(k, g, m) for k in (2, 1) for g in (1, GROUPS) for m in (1 << 8, 2)]
+         + [tail_args(2, 2, 1 << K.TAIL_MAX_BITS), tail_args(1, 1, 1 << K.TAIL_MAX_BITS)] + tail_edges,
+         lambda: tail_args(2, 1, 1 << min(bn, sumcheck_prover.TAIL_BITS))),
     ]
 
 
@@ -389,6 +411,7 @@ def extra_timings(bn: int, dev, rng):
         return rand_lazy(rng, shape, dev)
 
     m = 1 << (bn - 2)  # G = 4 lanes of 2^(bn-2): the grouped path's tables
+    tail = min(bn, sumcheck_prover.TAIL_BITS)
     return {
         "fold": ("nt = 3 (eq, x0, x1)", lambda: ([r(1 << bn) for _ in range(3)], r(1))),
         "cipher_partial_evals": (f"G = {GROUPS}", lambda: (r(GROUPS * m), r(GROUPS * m), r(GROUPS * m), r(GROUPS),
@@ -396,6 +419,8 @@ def extra_timings(bn: int, dev, rng):
         "identity_partial_evals": (f"G = {GROUPS}", lambda: (r(GROUPS * m), r(GROUPS * m), GROUPS,
                                                             K.IDENTITY_EVALS, True)),
         "gruen_round_scalar": (f"G = {GROUPS}", lambda: (r(8, GROUPS),) + tuple(r(GROUPS) for _ in range(4))),
+        # the identity layer's tail
+        "tail_rounds": ("the identity gate", lambda: (r(1, 1 << tail), [r(1, 1 << tail)], None)),
     }
 
 
@@ -462,6 +487,16 @@ def products_work(name: str, args) -> tuple[int, int]:
     if name == "cipher_layer":
         n = args[0].shape[-1]
         return FE * (3 * n + 1), 4 * n
+    if name == "tail_rounds":
+        eq, xs, ark = args
+        g, m, k = eq.shape[1], eq.shape[2], len(xs)
+        e, s = (K.CIPHER_EVALS if ark is not None else K.IDENTITY_EVALS), m.bit_length() - 1
+        per_t = 5 if ark is not None else 1  # x^7 and the eq weight, or the eq weight
+        # m - 1 pairs over the rounds: the sums at E points and the folds of
+        # 1 + k tables; a round's interpolation (E^2) and hash (E words x 91 x 4)
+        products = g * ((m - 1) * (e * per_t + 1 + k) + s * (e * e + 4 * K.MIMC_ROUNDS * e))
+        return (FE * ((1 + k) * g * m + (ark is not None) + e * e + K.MIMC_ROUNDS + s * (e + 1) * g + (1 + k) * g),
+                products)
     if name == "gruen_round_scalar":
         g = args[0].shape[-1]
         # combine 16 + 9, hash 9 words x 91 rounds x 4, eq1 and ck' 2
@@ -521,6 +556,16 @@ def log_chain(name: str, ms: float, dev, rng) -> None:
         f"{per_sbox / 4:.1f} ns a product ({how})")
 
 
+def log_tail_floor(ms: float, args, dev, rng, label: str = "") -> None:
+    """The tail rounds against their chain floor: log2(m) dependent hashes
+    of E words each (mimc_hash at E words, timed here)."""
+    eq, _, ark = args
+    s, e = eq.shape[-1].bit_length() - 1, (K.CIPHER_EVALS if ark is not None else K.IDENTITY_EVALS)
+    hash_ms = time_kernel(K.mimc_hash, (rand_lazy(rng, (e,), dev),))
+    log(f"# chain floor tail_rounds{label}: {s} x mimc_hash at {e} words ({hash_ms:.4f} ms) = {s * hash_ms:.4f} ms; "
+        f"the kernel {ms:.4f} ms is {ms / (s * hash_ms):.3f}x it")
+
+
 def phase_kernels(bn: int, dev) -> dict:
     rng = np.random.default_rng(2024)
     results = {}
@@ -543,6 +588,8 @@ def phase_kernels(bn: int, dev) -> dict:
         if err:
             raise AssertionError(f"{name}: kernel != plain at the main shapes (max limb diff {err})")
         bound_ms, bound_by = bound(name, args)
+        if name == "tail_rounds":
+            log_tail_floor(ms, args, dev, rng)
         del got, want, args
         torch.cuda.empty_cache()
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -564,6 +611,8 @@ def phase_kernels(bn: int, dev) -> dict:
             x_bound, x_by = bound(name, args)
             log(f"# kernel {name} at {label}: bit-equal to plain; {x_ms:.4f} ms kernel vs "
                 f"{x_plain_ms:.2f} ms plain, bound {x_bound:.6f} ms ({x_by})")
+            if name == "tail_rounds":
+                log_tail_floor(x_ms, args, dev, rng, f" at {label}")
     return results
 
 
@@ -676,9 +725,9 @@ def grouped_walk(bn: int, g: int, dev, tail_bits: int = sumcheck_prover.TAIL_BIT
 
 def phase_grouped_cross_check(bn: int, g: int, dev, tail_bits: int = 2) -> None:
     """Kernel and plain grouped walks, and each lane's single walk. Small
-    tail_bits put nearly every round on the kernels (fused head rounds at
-    G lanes); the plain-torch tail rounds, not the kernels, set the time
-    of a walk, and the transcript does not depend on the split."""
+    tail_bits put nearly every round on the head-round kernels (fused
+    head rounds at G lanes); the transcript does not depend on the
+    split."""
     c, block, state, qprime, _, proof, t_k = grouped_walk(bn, g, dev, tail_bits)
     vecs = [proof_to_vec(c, gkr_verifier.slice_group(proof, i)) for i in range(g)]
     del proof
@@ -701,12 +750,12 @@ def phase_grouped_cross_check(bn: int, g: int, dev, tail_bits: int = 2) -> None:
 
 ROUND_PATHS = ("coeff", "evals")
 # kernels each path must launch (beside the hash and the fold)
-PATH_KERNELS = {  # cipher_layer: the cipher gate in every generic (tail) round
+PATH_KERNELS = {  # tail_rounds: every layer's tail rounds
     "gruen": ["mimc_witness", "mimc_hash", "mimc_hash_g", "fold", "suffix_step", "multi_eq", "gruen_acc",
-              "identity_acc", "gruen_round_scalar", "cipher_layer"],
-    "coeff": ["mimc_hash", "mimc_hash_g", "fold", "multi_eq", "cipher_coeff_acc", "identity_acc", "cipher_layer"],
+              "identity_acc", "gruen_round_scalar", "tail_rounds"],
+    "coeff": ["mimc_hash", "mimc_hash_g", "fold", "multi_eq", "cipher_coeff_acc", "identity_acc", "tail_rounds"],
     "evals": ["mimc_hash", "mimc_hash_g", "fold", "multi_eq", "cipher_partial_evals", "identity_partial_evals",
-              "cipher_layer"],
+              "tail_rounds"],
 }
 
 
@@ -795,21 +844,23 @@ def tamper_probe(c, proof, block, state, a, qprime, what: str) -> None:
 def expected_launches(bn: int, rounds: str) -> dict:
     """Launches of a single walk and its verification, from the round
     schedule: 91 cipher layers and the 91-claim identity layer, each with
-    max(0, bn - TAIL_BITS) head rounds and min(bn, TAIL_BITS) tail rounds;
+    max(0, bn - TAIL_BITS) head rounds, then its min(bn, TAIL_BITS) tail
+    rounds in one tail_rounds launch (gate, hashes and folds inside it);
     the verifier folds the output and the two input tables once per
-    variable; each cipher layer's tail round evaluates its gate through
-    cipher_layer once."""
-    head, tail = max(0, bn - sumcheck_prover.TAIL_BITS), min(bn, sumcheck_prover.TAIL_BITS)
+    variable; only the witness would evaluate a gate through
+    cipher_layer, and the MiMC witness is mimc_witness."""
+    head = max(0, bn - sumcheck_prover.TAIL_BITS)
+    tails = 92 if bn > 0 else 0
     if rounds == "gruen":
-        return {"gruen_round_scalar": 91 * head, "mimc_hash": 92 * tail + head + 1, "cipher_layer": 91 * tail}
+        return {"gruen_round_scalar": 91 * head, "mimc_hash": head + 1, "tail_rounds": tails, "cipher_layer": 0}
     cipher = "cipher_coeff_acc" if rounds == "coeff" else "cipher_partial_evals"
     ident = "identity_acc" if rounds == "coeff" else "identity_partial_evals"
     big = bn >= sumcheck_prover.MULTI_EQ_MIN_BITS  # single-claim eq tables by the contraction
     return {cipher: 91 * head, ident: head, "fold": 92 * head + 3 * bn, "multi_eq": 92 if big else 1,
             # the combined claim of the evals path hashes the 91 claims again
-            "mimc_hash": 92 * bn + 1 + (rounds == "evals"),
+            "mimc_hash": 92 * head + 1 + (rounds == "evals"),
             "mul_scalar": 0 if big else 91 * max(0, bn - 9), "suffix_step": 0, "gruen_acc": 0,
-            "gruen_round_scalar": 0, "cipher_layer": 91 * tail}
+            "gruen_round_scalar": 0, "tail_rounds": tails, "cipher_layer": 0}
 
 
 def report_launches(launches: dict, bn: int, rounds: str, what: str) -> None:
@@ -817,6 +868,8 @@ def report_launches(launches: dict, bn: int, rounds: str, what: str) -> None:
     same = all(launches[k] == v for k, v in expected.items())
     log(f"# launches on {what}: {json.dumps(launches)}")
     log(f"# expected from the round schedule: {json.dumps(expected)}; {'as expected' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError(f"launches on {what} differ from the round schedule")
 
 
 def phase_main(bn: int, dev, card: str) -> dict:
@@ -979,6 +1032,13 @@ def n_cipher(c) -> int:
     return sum(type(layer.gate).__name__ == "CipherGate" for layer in c)
 
 
+def n_tail(c) -> int:
+    """Layers whose sumcheck ends in one tail_rounds launch: a cipher gate
+    over two tables or an identity gate over one."""
+    return sum((type(layer.gate).__name__, len(layer.in_)) in (("CipherGate", 2), ("IdentityGate", 1))
+               for layer in c)
+
+
 @contextmanager
 def layer_timer(times: dict):
     """Seconds of every layer's sumcheck in a GKR walk, by (gate, claims),
@@ -1053,11 +1113,13 @@ def circuit_walk(kind: str, bn: int, dev, card: str) -> dict:
     return out
 
 
-def circuits_cross_check(bn: int, dev, tail_bits: int = 2) -> int:
+def circuits_cross_check(bn: int, dev, tail_bits: int = 2) -> dict:
     """GMiMC T2 and Poseidon (2, 2, 3) at bn through the kernels and again
     through the plain twins: equal witnesses and proof vectors; then GMiMC's
-    full-state prover. Returns the cipher_layer launches these runs make."""
-    launches = 0
+    full-state prover. Returns the cipher_layer (one a cipher layer of a
+    witness) and tail_rounds (one a cipher or identity layer of a proof)
+    launches these runs make."""
+    launches = {"cipher_layer": 0, "tail_rounds": 0}
     for kind in ("gmimc", "poseidon small"):
         c, inputs, qprime, _ = circuit_setup(kind, bn, dev)
         a = assign(c, inputs)
@@ -1069,7 +1131,8 @@ def circuits_cross_check(bn: int, dev, tail_bits: int = 2) -> int:
             vec_plain = proof_to_vec(c, gkr_prover.prove(c, a_plain, qprime, tail_bits))
         if not all(torch.equal(x, y) for x, y in zip(a, a_plain)) or vec != vec_plain:
             raise AssertionError(f"{kind} bn={bn}: kernel and plain walks differ")
-        launches += n_cipher(c) * (1 + min(bn, tail_bits))
+        launches["cipher_layer"] += n_cipher(c)
+        launches["tail_rounds"] += n_tail(c)
         log(f"# {kind} bn={bn}, tail_bits={tail_bits}: kernel and plain witnesses and proof vectors identical "
             f"({len(vec)} elements), verified")
     t, n = 2, 1 << bn
@@ -1080,7 +1143,8 @@ def circuits_cross_check(bn: int, dev, tail_bits: int = 2) -> int:
     gmimc.verify_full_state(t, blocks, states, qprime, results)
     idx = sampled(n, 32)
     for w, (c, a, _) in enumerate(results):
-        launches += n_cipher(c) * (1 + min(bn, sumcheck_prover.TAIL_BITS))
+        launches["cipher_layer"] += n_cipher(c)
+        launches["tail_rounds"] += n_tail(c)
         want = [gmimc.permutation_word_scalar(t, [stream_value((t + k) * n + i) for k in range(t)],
                                               [stream_value(k * n + i) for k in range(t)], w) for i in idx]
         if fr.to_ints(a[-1][:, idx].contiguous()) != want:
@@ -1115,19 +1179,21 @@ def phase_circuits(bn: int, pbn: int, dev, card: str) -> dict:
     K.reset_launch_counts()
     walks = {"gmimc": circuit_walk("gmimc", bn, dev, card)}
     walks["poseidon"] = circuit_walk("poseidon", pbn, dev, card)
-    expected_cipher = sum(n_cipher(c) * (1 + min(b, sumcheck_prover.TAIL_BITS))
-                          for c, b in ((gmimc.gmimc_circuit(2), bn), (poseidon.poseidon_circuit(*POSEIDON_T2), pbn)))
+    walked = (gmimc.gmimc_circuit(2), poseidon.poseidon_circuit(*POSEIDON_T2))
     torch.cuda.empty_cache()
-    expected_cipher += circuits_cross_check(min(10, bn), dev)
-    expected_pow7 = hashers_check(dev)
+    expected = circuits_cross_check(min(10, bn), dev)
+    expected["cipher_layer"] += sum(map(n_cipher, walked))
+    expected["tail_rounds"] += sum(map(n_tail, walked))
+    expected["pow7"] = hashers_check(dev)
     launches = dict(K.LAUNCHES)
     require_launched(launches, ["cipher_layer", "pow7", "gruen_acc", "gruen_round_scalar", "suffix_step",
-                                "cipher_coeff_acc", "identity_acc", "multi_eq", "fold", "mimc_hash", "mimc_hash_g"],
-                     "phase 8")
-    expected = {"cipher_layer": expected_cipher, "pow7": expected_pow7}
+                                "cipher_coeff_acc", "identity_acc", "multi_eq", "fold", "mimc_hash", "mimc_hash_g",
+                                "tail_rounds"], "phase 8")
     same = all(launches[k] == v for k, v in expected.items())
     log(f"# launches in phase 8: {json.dumps(launches)}")
     log(f"# expected: {json.dumps(expected)}; {'as expected' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("launches in phase 8 differ from the expected counts")
     return {"walks": walks, "launches": launches}
 
 
@@ -1276,7 +1342,8 @@ def main() -> int:
                   "cipher_partial_evals": ("phase 7 evals", paths["evals"]),
                   "identity_partial_evals": ("phase 7 evals", paths["evals"]),
                   "mul_scalar": (f"phase 4 coeff, bn={min(12, bn)}", small["coeff"]),
-                  "pow7": ("phase 8", circuits["launches"])}
+                  "pow7": ("phase 8", circuits["launches"]),
+                  "cipher_layer": ("phase 8", circuits["launches"])}
     kernels = []
     for name, (source, replaces) in K.KERNELS.items():
         where, counts = counted_on.get(name, ("phase 5", launches))

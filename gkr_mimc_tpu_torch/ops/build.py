@@ -48,6 +48,7 @@ SIGNATURES = {
     "gkr_mul_scalar": (_P, _P, _P, _I, _P),
     "gkr_pow7": (_P, _P, _I, _P),
     "gkr_cipher_layer": (_P, _P, _P, _P, _I, _P),
+    "gkr_tail_rounds": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # probes (ops/probes.py)
     "gkr_cipher_partial_evals_ptx": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gkr_probe_op_chain": (_P, _P, _P, _I, _I, _I, _I, _P),

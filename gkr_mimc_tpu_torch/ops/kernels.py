@@ -25,6 +25,9 @@ identity_partial_evals  csrc/partial_evals.cu   identity_partial_evals (:411), i
 gruen_round_scalar      csrc/gruen_round.cu     gruen_round_scalar (:1446)
 pow7                    csrc/sbox.cu            pow7 (:71)
 cipher_layer            csrc/sbox.cu            cipher_layer (:89)
+tail_rounds             csrc/tail.cu            the tail program gkr_mimc_tpu/sumcheck/prover.py
+                                                _tail_body (:559), with cipher_layer (:89) and
+                                                mimc_hash_fs (:253) inside it
 ======================  ======================  ===============================================
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -55,6 +58,7 @@ import torch
 from ..fields import fr
 from ..fields.bn254 import L
 from ..hashes.ark import arks_mont
+from ..poly import lagrange
 from . import build
 
 MIMC_ROUNDS = 91
@@ -91,6 +95,9 @@ KERNELS = {
     "gruen_round_scalar": ("gkr_mimc_tpu_torch/csrc/gruen_round.cu", "gkr_mimc_tpu/ops/kernels.py:1446"),
     "pow7": ("gkr_mimc_tpu_torch/csrc/sbox.cu", "gkr_mimc_tpu/ops/kernels.py:71"),
     "cipher_layer": ("gkr_mimc_tpu_torch/csrc/sbox.cu", "gkr_mimc_tpu/ops/kernels.py:89"),
+    "tail_rounds": ("gkr_mimc_tpu_torch/csrc/tail.cu",
+                    "gkr_mimc_tpu/sumcheck/prover.py:559 _tail_body (gkr_mimc_tpu/ops/kernels.py:89 "
+                    "cipher_layer, :253 mimc_hash_fs inside it)"),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -669,6 +676,87 @@ def gruen_round_scalar_plain(qc, alpha, beta, ck, qk):
     return p, r, fr.mul(ck, _eq1_at(qk, r))
 
 
+# ---------------------------------------------------------------------------
+# The tail rounds of a cipher or identity layer
+# ---------------------------------------------------------------------------
+
+TAIL_MAX_BITS = 10  # tables of at most 2**TAIL_MAX_BITS entries fit the tail kernel's shared memory
+
+
+def generic_round(evaluate, n_evals: int, eq: torch.Tensor, xs: list, challenge):
+    """One evaluation-form sumcheck round on (8, G, n) tables in plain torch
+    field ops: the tables at t = 0..n_evals-1, the gate ``evaluate(xs_t)``,
+    the sums of eq_t * gate, interpolation, the challenge
+    ``challenge(coeffs)`` and the folds bot + r (top - bot). Returns (eq,
+    xs, coeffs (8, n_evals, G), r (8, G))."""
+    tables = torch.stack([eq] + list(xs), dim=1)  # (8, 1 + k, G, n)
+    at_t = stack_t(tables, n_evals)
+    g = evaluate(list(at_t[:, 1:].unbind(1)))
+    evals = fr.reduce_sum(fr.mul(at_t[:, 0], g), 2)  # (8, n_evals, G)
+    coeffs = lagrange.interpolate_on_range_device(evals)
+    r = challenge(coeffs)
+    half = tables.shape[-1] // 2
+    bot, top = tables[..., :half], tables[..., half:]
+    folded = fr.add(bot, fr.mul(fr.sub(top, bot), r.reshape(L, 1, -1, 1))).unbind(1)
+    return folded[0], list(folded[1:]), coeffs, r
+
+
+def _tail_evals(name: str, eq: torch.Tensor, xs: list, ark) -> int:
+    """Check the tail's tables and gate: eq and k tables (8, G, m),
+    2 <= m <= 2**TAIL_MAX_BITS a power of two; ark (8,) with k = 2 (cipher
+    gate), None with k = 1 (identity gate). Returns the number of
+    evaluations a round."""
+    if (len(xs), ark is None) not in ((2, False), (1, True)):
+        raise ValueError(f"{name}: expected x0, x1 and an ark (cipher) or x0 and no ark (identity)")
+    if eq.dim() != 3 or eq.shape[0] != L:
+        raise ValueError(f"{name}: eq shape {tuple(eq.shape)}, expected (8, G, m)")
+    m = eq.shape[2]
+    if not 2 <= m <= 1 << TAIL_MAX_BITS or m & (m - 1):
+        raise ValueError(f"{name}: table size {m} is not a power of two in [2, 2^{TAIL_MAX_BITS}]")
+    for x in xs:
+        _expect(name, x, eq.shape)
+    if ark is not None:
+        _expect(name, ark, (L,))
+    return CIPHER_EVALS if ark is not None else IDENTITY_EVALS
+
+
+def tail_rounds(eq: torch.Tensor, xs: list, ark) -> tuple:
+    """Every remaining round of a layer whose tables are small: eq and xs
+    (8, G, m), the cipher gate ((x1 + ark) + x0)^7 over xs = [x0, x1] with
+    ark (8,), or the identity gate over xs = [x0] with ark None. Returns
+    the log2(m) rounds' coefficients (s, 8, E, G) (E = 9 or 3) and
+    challenges (s, 8, G, canonical), and the final values of eq and the
+    tables (1 + k, 8, G): what s generic rounds give."""
+    n_evals = _tail_evals("tail_rounds", eq, xs, ark)
+    if _on_cpu("tail_rounds", eq, *xs, *([] if ark is None else [ark])):
+        return tail_rounds_plain(eq, xs, ark)
+    g, m = eq.shape[1], eq.shape[2]
+    s = m.bit_length() - 1
+    coeffs, rs, finals = _empty((s, L, n_evals, g), eq), _empty((s, L, g), eq), _empty((1 + len(xs), L, g), eq)
+    _launch("tail_rounds", "gkr_tail_rounds", eq.device, _ptr(eq), _ptr(xs[0]), _ptr(xs[-1]),
+            None if ark is None else _ptr(ark), _ptr(lagrange.lagrange_tensor(n_evals, eq.device)),
+            _ptr(arks_mont(MIMC_ROUNDS, eq.device)), _ptr(coeffs), _ptr(rs), _ptr(finals), m, g, len(xs))
+    return coeffs, rs, finals
+
+
+def tail_rounds_plain(eq, xs, ark):
+    """The loop of ``generic_round`` over the tail, the cipher gate as
+    ``cipher_layer_plain`` computes it and the challenge on host ints."""
+    n_evals = _tail_evals("tail_rounds_plain", eq, xs, ark)
+
+    def evaluate(xs_t):
+        if ark is None:
+            return xs_t[0]
+        return fr.pow7(fr.add(fr.add(xs_t[1], ark.reshape((L,) + (1,) * (xs_t[1].dim() - 1))), xs_t[0]))
+
+    coeffs, rs = [], []
+    while eq.shape[-1] > 1:
+        eq, xs, c, r = generic_round(evaluate, n_evals, eq, xs, mimc_hash_g_plain)
+        coeffs.append(c)
+        rs.append(r)
+    return torch.stack(coeffs), torch.stack(rs), torch.stack([eq[:, :, 0]] + [x[:, :, 0] for x in xs])
+
+
 PLAIN = {
     "mimc_witness": mimc_witness_plain,
     "mimc_hash": mimc_hash_plain,
@@ -685,4 +773,5 @@ PLAIN = {
     "gruen_round_scalar": gruen_round_scalar_plain,
     "pow7": pow7_plain,
     "cipher_layer": cipher_layer_plain,
+    "tail_rounds": tail_rounds_plain,
 }

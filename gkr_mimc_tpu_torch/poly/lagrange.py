@@ -44,7 +44,7 @@ def lagrange_coefficients(domain_size: int) -> tuple[tuple[int, ...], ...]:
 
 
 @lru_cache(maxsize=None)
-def _lagrange_tensor(domain_size: int, device: torch.device) -> torch.Tensor:
+def lagrange_tensor(domain_size: int, device: torch.device) -> torch.Tensor:
     """Montgomery Lagrange matrix (8, K eval points, K coefficients)."""
     lag = lagrange_coefficients(domain_size)
     flat = [lag[i][j] for i in range(domain_size) for j in range(domain_size)]
@@ -55,7 +55,7 @@ def interpolate_on_range_device(values: torch.Tensor) -> torch.Tensor:
     """values (8, K[, *B]) at 0..K-1 -> (8, K[, *B]) coefficients."""
     k = values.shape[1]
     batch = values.shape[2:]
-    lag = _lagrange_tensor(k, values.device).reshape((L, k, k) + (1,) * len(batch))
+    lag = lagrange_tensor(k, values.device).reshape((L, k, k) + (1,) * len(batch))
     prods = fr.mul(values.unsqueeze(2), lag)  # (8, K, K, *B)
     return fr.reduce_sum(prods, 0)
 

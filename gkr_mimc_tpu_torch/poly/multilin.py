@@ -14,17 +14,6 @@ from ..fields.bn254 import L
 from ..ops import kernels as K
 
 
-def fold(table: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Fold on the leading variable: out = bot + r * (top - bot), halving
-    the last axis. r (8,) broadcasts over the table; grouped r (8, G)
-    holds one challenge per group of the table's axis -2. Plain torch:
-    the main path's large folds go through ``ops.kernels.fold``."""
-    mid = table.shape[-1] // 2
-    bot, top = table[..., :mid], table[..., mid:]
-    rr = r.reshape((L,) + (1,) * (table.dim() - r.dim() - 1) + tuple(r.shape[1:]) + (1,))
-    return fr.add(bot, fr.mul(fr.sub(top, bot), rr))
-
-
 def evaluate(table: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Multilinear evaluation of an (8, 2**n) table at coords (n, 8) rows,
     folding once per coordinate through ``ops.kernels.fold`` -> (8,)."""

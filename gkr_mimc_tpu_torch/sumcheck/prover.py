@@ -32,15 +32,15 @@ switches select (gkr_mimc_tpu/sumcheck/prover.py:243-252, 440-471):
   round as P(r); a layer without claims (the output layer) computes its
   first round at every t.
 
-Every other gate, and every table of at most 2**tail_bits entries, takes
-the generic evaluation-form round in plain torch field ops (the reference
-leaves these to XLA). Transcripts do not depend on the path or the split:
-all paths compute the same round polynomials exactly.
-
-The reference runs its tail rounds at a fixed, masked table size so one
-compiled program serves every round; PyTorch runs eagerly, so the tail
-rounds here work on the halving tables themselves, which gives the same
-values.
+Once the tables hold at most 2**tail_bits entries, a cipher or identity
+layer runs all its remaining rounds in one launch, ``ops.kernels.
+tail_rounds`` (gate sums, interpolation, challenge and folds of every tail
+round), as the reference runs its tail as one compiled masked program
+(gkr_mimc_tpu/sumcheck/prover.py:559-579). Every other gate takes the
+generic evaluation-form round in plain torch field ops
+(``ops.kernels.generic_round``; the reference leaves these to XLA), head
+and tail. Transcripts do not depend on the path or the split: all paths
+compute the same round polynomials exactly.
 """
 
 from __future__ import annotations
@@ -156,18 +156,21 @@ def _make_eq_lanes(qprimes: torch.Tensor, claims: torch.Tensor, lo_bits: int) ->
 
 
 def _generic_round(gate: Gate, params, eq, xs):
-    """Evaluation-form round on (8, G, n) tables: evaluations at
-    t = 0..deg+1, interpolation, challenge, plain folds. Returns
-    (eq, xs, coeffs (8, deg+2, G), r (8, G))."""
-    n_evals = gate.degree + 2
-    tables = torch.stack([eq] + list(xs), dim=1)  # (8, 1 + k, G, n)
-    at_t = K.stack_t(tables, n_evals)
-    g = gate.eval_batch(params, list(at_t[:, 1:].unbind(1)))
-    evals = fr.reduce_sum(fr.mul(at_t[:, 0], g), 2)  # (8, n_evals, G)
-    coeffs = lagrange.interpolate_on_range_device(evals)
-    r = _challenge(coeffs)
-    folded = multilin.fold(tables, r).unbind(1)
-    return folded[0], list(folded[1:]), coeffs, r
+    """Evaluation-form round on (8, G, n) tables through the gate's
+    ``eval_batch`` and the transcript hash. Returns (eq, xs, coeffs
+    (8, deg+2, G), r (8, G))."""
+    return K.generic_round(lambda xs_t: gate.eval_batch(params, xs_t), gate.degree + 2, eq, xs, _challenge)
+
+
+def _tail(kind: str, params, eq, xs, coeffs_out, rs_out):
+    """Every remaining round of a cipher or identity layer in one
+    ``tail_rounds`` launch; returns the final (8, G, 1) eq and tables."""
+    ark = params[0] if kind == "cipher" else None
+    coeffs, rs, finals = K.tail_rounds(eq.contiguous(), [x.contiguous() for x in xs], ark)
+    coeffs_out += coeffs.unbind(0)
+    rs_out += rs.unbind(0)
+    finals = finals.unsqueeze(-1).unbind(0)
+    return finals[0], list(finals[1:])
 
 
 def _fold_all(flat: list, r: torch.Tensor, g: int):
@@ -335,8 +338,10 @@ def prove(xs: list, qprimes: torch.Tensor, claims, gate: Gate,
                     eq, xs, c, r = _coeff_round(kind, ark, eq, xs)
                 coeffs.append(c)
                 rs.append(r)
-    while eq.shape[-1] > 1:
+    while eq.shape[-1] > (1 if kind is None else 1 << K.TAIL_MAX_BITS):
         eq, xs, c, r = _generic_round(gate, params, eq, xs)
         coeffs.append(c)
         rs.append(r)
+    if kind is not None and eq.shape[-1] > 1:
+        eq, xs = _tail(kind, params, eq, xs, coeffs, rs)
     return _package(coeffs, rs, eq, xs, gate.degree + 2, grouped)

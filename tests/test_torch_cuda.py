@@ -80,6 +80,9 @@ def _cases(rng, dev):
                          (r(1 << 16), r(1 << 16), r(1)[:, 0].contiguous())],
         "gruen_round_scalar": [(r(8, 1), r(1), r(1), r(1), r(1)), (r(8, 3), r(3), r(3), r(3), r(3)),
                                (r(8, 70), r(70), r(70), r(70), r(70))],
+        # both gates at G = 1 and 4, the main path's tail (m = 2^8) and a single round (m = 2)
+        "tail_rounds": [(r(g, m), [r(g, m) for _ in range(k)], r(1)[:, 0].contiguous() if k == 2 else None)
+                        for k in (2, 1) for g in (1, 4) for m in (1 << 8, 2)],
     }
 
 

@@ -45,16 +45,18 @@ def _instance(bn):
 
 @pytest.mark.parametrize("tail_bits", [8, 1])
 def test_golden_proof_vector(monkeypatch, tail_bits):
-    """The golden walk, its cipher layers' generic tail rounds evaluating
-    the gate through the cipher_layer wrapper (one call a round)."""
+    """The golden walk, the tail rounds of its 91 cipher layers and of its
+    identity layer each in one call of the tail_rounds wrapper (the gate
+    inside it, never through cipher_layer)."""
     want = json.loads(GOLDEN.read_text())["gkr_mimc"]
     c, block, state, qprime = _instance(want["bn"])
     assert [str(v) for v in fr.to_ints(qprime.T.contiguous())] == want["qprime"]
     a = assign_fused(block, state)
     calls = []
-    monkeypatch.setattr(K, "cipher_layer", lambda *args, _f=K.cipher_layer: calls.append(1) or _f(*args))
+    monkeypatch.setattr(K, "tail_rounds", lambda *args, _f=K.tail_rounds: calls.append(1) or _f(*args))
+    monkeypatch.setattr(K, "cipher_layer", lambda *args: pytest.fail("cipher_layer called in a tail"))
     proof = gkr_prover.prove(c, a, qprime, tail_bits)
-    assert len(calls) == 91 * min(want["bn"], tail_bits)
+    assert len(calls) == 92
     assert [str(v) for v in fr.to_ints(a[93])] == want["outputs"]
     assert [str(v) for v in proof_to_vec(c, proof)] == want["proof_vec"]
     gkr_verifier.verify(c, proof, [block, state], a[93], qprime)
