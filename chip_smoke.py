@@ -7,15 +7,17 @@ nvcc per source, in parallel), then:
 
 1. toolchain and card: torch, CUDA, nvcc, the card's name and power limit,
    the build time and nvcc's register report, with a summary line of the
-   registers, spills and shared memory of the cipher rounds' deferred
-   pass 1 (one and two weight rows), its two finishers and the hash-chain
-   kernels (the tail rounds' two gates among them);
+   registers, spills and shared memory of the deferred round kernels (the
+   cipher rounds' pass 1 on one and two weight rows, the identity rounds'
+   pass 1, their three finishers) and the hash-chain kernels (the tail
+   rounds' two gates among them);
 2. every kernel against its plain torch twin on the card, bit for bit, at
    small shapes (G = 1, 2, 4; both claim-trick settings of the partial
-   evaluations; the fold at 3 tables; multi_eq at one claim; the S-boxes
-   and the three cipher rounds at the lazy representatives' edges; the
-   cipher rounds where a block sums more points than one flush interval of
-   their digit sums; the tail rounds of both gates at G = 1 and 4, at the
+   evaluations; the fold at 3 tables; multi_eq at one claim; the S-boxes,
+   the three cipher rounds and the two identity rounds at the lazy
+   representatives' edges; the five deferred rounds where a block sums more
+   points than one flush interval of their digit sums; the tail rounds of
+   both gates at G = 1 and 4, at the
    main path's 2^8 entries, a single round, the largest tail and the lazy
    edges) and
    at the main path's shapes (timed, kernel and plain, beside the least
@@ -132,8 +134,13 @@ FE = 32  # bytes per field element
 # deferred): 9 full products and 8 unreduced ones (64 widening products,
 # 128 32-bit results) a point, and a 32 x 512 byte-digit contraction on the
 # tensor cores a weight row (one for gruen_acc, two for the direct rounds).
+# The identity rounds' (same namespace): no product a point, a 32 x 64
+# byte-digit contraction (x at the bottom and the top) a weight row (eq at
+# the bottom and the top), one product to Montgomery form a coefficient.
 DEFERRED_FULL, DEFERRED_WIDE, WIDE_RESULTS, DEFERRED_MACS = 9, 8, 128, 32 * 512
-WEIGHT_ROWS = {"gruen_acc": 1, "cipher_coeff_acc": 2, "cipher_partial_evals": 2}
+IDENTITY_MACS = 32 * 64
+WEIGHT_ROWS = {"gruen_acc": 1, "cipher_coeff_acc": 2, "cipher_partial_evals": 2, "identity_acc": 2,
+               "identity_partial_evals": 2}
 
 
 def log(msg: str) -> None:
@@ -149,11 +156,14 @@ def card_line() -> str:
 
 
 # kernels whose registers, spills and shared memory phase 1 logs by name
-# (parts of their mangled names): the cipher rounds' deferred pass 1 (both
-# instantiations) and its finishers, and the hash-chain kernels (the tail
-# rounds' both gates among them)
-REGISTER_WATCH = ("8deferred10acc_kernel", "8deferred19gruen_finish_kernel", "8deferred19coeff_finish_kernel",
-                  "gruen_round_kernel", "mimc_hash_kernel", "tail_kernel")
+# (parts of their mangled names): the deferred rounds' two passes 1 (the
+# cipher rounds' in both instantiations, the identity rounds') and their
+# finishers, and the hash-chain kernels (the tail rounds' both gates among
+# them)
+PASS1_WATCH = ("8deferred10acc_kernel", "8deferred19identity_acc_kernel")
+REGISTER_WATCH = PASS1_WATCH + ("8deferred19gruen_finish_kernel", "8deferred19coeff_finish_kernel",
+                                "8deferred22identity_finish_kernel", "gruen_round_kernel", "mimc_hash_kernel",
+                                "tail_kernel")
 
 
 def ptxas_usage(text: str) -> dict:
@@ -182,7 +192,7 @@ def log_sass() -> None:
     built library): instructions in all and in the largest loop (pass 1's
     tile loop; the hash chain's round loop, one S-box), and the tensor-core
     (IMMA) and shuffle instructions of the loop. Fails if an instantiation
-    of the cipher rounds' pass 1 has no IMMA in its tile loop."""
+    of a deferred pass 1 has no IMMA in its tile loop."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     text = subprocess.run([str(cuobjdump), "-sass", str(build.library_path())], capture_output=True, text=True,
                           check=True).stdout
@@ -192,7 +202,7 @@ def log_sass() -> None:
         imma = sum(op.startswith("IMMA") for op in loop)
         shfl = sum(op.startswith("SHFL") for op in loop)
         log(f"# sass {fn}: {len(whole)} instructions, largest loop {len(loop)} ({imma} IMMA, {shfl} SHFL)")
-        if REGISTER_WATCH[0] in fn and imma == 0:
+        if any(key in fn for key in PASS1_WATCH) and imma == 0:
             raise AssertionError(f"{fn}: no IMMA in its tile loop")
 
 
@@ -349,6 +359,10 @@ def kernel_cases(bn: int, dev, rng):
                     (top, cyc[:, :64].contiguous(), cyc[:, 64:].contiguous(), top[:, :1].contiguous(), 1),
                     (cyc[:, 64:].contiguous(), cyc[:, :64].contiguous(), cyc.flip(1)[:, :64].contiguous(),
                      cyc[:, 3:5].contiguous(), 2)]
+    # the identity rounds at the same edges: eq = x = 2p - 1; eq = 2p - 1
+    # against x cycled over the edges; both cycled (G = 2)
+    identity_edges = [(top[:, :32].contiguous(), top[:, :32].contiguous(), 1), (top, cyc[:, :64].contiguous(), 1),
+                      (cyc[:, 64:].contiguous(), cyc.flip(1)[:, :64].contiguous(), 2)]
 
     # small cases: G = 1, 2 and 4; both claim-trick settings (skip_t0 False
     # is the output layer's full first round)
@@ -371,7 +385,7 @@ def kernel_cases(bn: int, dev, rng):
         # G = 1, 2, 4, ragged halves (1 and 64 points), the lazy edges, and
         # G = 4 x 2^(bn-2) (the grouped path's tables), where a block sums
         # more points than one flush interval of the s32 digit sums (last in
-        # the list of each cipher round)
+        # the list of each deferred round)
         ("gruen_acc", [acc_args(1, 2), acc_args(4, 2), acc_args(2, 128), acc_args(1, 1 << 16),
                        acc_args(4, 1 << 12)] + gruen_edges + [acc_args(GROUPS, n // GROUPS)],
          lambda: acc_args(1, n)),
@@ -379,16 +393,22 @@ def kernel_cases(bn: int, dev, rng):
                               coeff_args(2, 1 << 10), coeff_args(4, 1 << 12)] + direct_edges
          + [coeff_args(GROUPS, n // GROUPS)],
          lambda: coeff_args(1, n)),
-        ("identity_acc", [(r(2), r(2), 1), (r(8), r(8), 4), (r(1 << 16), r(1 << 16), 1),
-                          (r(4 << 12), r(4 << 12), 4)],
+        # the identity rounds also at 64 points (half a tile) and G = 3 x 2^16
+        # (256 tiles a group, not a multiple of its blocks)
+        ("identity_acc", [(r(2), r(2), 1), (r(8), r(8), 4), (r(128), r(128), 1), (r(1 << 16), r(1 << 16), 1),
+                          (r(4 << 12), r(4 << 12), 4), (r(3 << 16), r(3 << 16), 3)] + identity_edges
+         + [(r(n), r(n), GROUPS)],
          lambda: (r(n), r(n), 1)),
         ("cipher_partial_evals", [cpe_args(g, m, skip) for g, m in ((1, 2), (2, 8), (4, 1 << 12), (1, 1 << 16))
                                   for skip in (False, True)]
          + [e + (K.CIPHER_EVALS, skip) for e in direct_edges for skip in (False, True)]
          + [cpe_args(GROUPS, n // GROUPS, True)],
          lambda: cpe_args(1, n, True)),
-        ("identity_partial_evals", [ipe_args(g, m, skip) for g, m in ((1, 2), (2, 8), (4, 1 << 12), (1, 1 << 16))
-                                    for skip in (False, True)],
+        ("identity_partial_evals", [ipe_args(g, m, skip) for g, m in ((1, 2), (2, 8), (1, 128), (4, 1 << 12),
+                                                                      (1, 1 << 16), (3, 1 << 16))
+                                    for skip in (False, True)]
+         + [e + (K.IDENTITY_EVALS, skip) for e in identity_edges for skip in (False, True)]
+         + [ipe_args(GROUPS, n // GROUPS, True)],
          lambda: ipe_args(1, n, True)),
         ("gruen_round_scalar", [round_args(1), round_args(2), round_args(4), round_args(2048)],
          lambda: round_args(1)),
@@ -427,6 +447,14 @@ def extra_timings(bn: int, dev, rng):
 def work(name: str, args) -> tuple[int, int, int]:
     """(bytes moved, 32-bit multiply results, int8 tensor-core operations)
     of one call: each input read and each output written once."""
+    if name in ("identity_acc", "identity_partial_evals"):
+        # the identity rounds' deferred algorithm: eq and x read once, the
+        # 32 x 64 byte MACs a weight row a point, one product to Montgomery
+        # form a coefficient (3 a group)
+        eq, g = args[0], args[2]
+        n_out = 3 if name == "identity_acc" else args[3] - bool(args[4])
+        return (FE * (2 * eq.shape[-1] + n_out * g), 3 * g * MULS_PER_PRODUCT,
+                2 * WEIGHT_ROWS[name] * IDENTITY_MACS * (eq.shape[-1] // 2))
     if name in WEIGHT_ROWS:
         # the deferred algorithm: 9 full and 8 unreduced products a point,
         # the 32 x 512 byte MACs of its digit contraction a weight row, one
@@ -472,15 +500,12 @@ def products_work(name: str, args) -> tuple[int, int]:
     if name == "mul_scalar":
         x, _ = args
         return FE * (2 * x.shape[-1] + 1), x.shape[-1]
-    if name == "identity_acc":
-        eq, _, g = args
-        return FE * (2 * eq.shape[-1] + 3 * g), 4 * (eq.shape[-1] // 2)
     # cipher_evals_per_t: the cipher round at every t, cipher_pe_variant's design
-    if name in ("cipher_evals_per_t", "identity_partial_evals"):
+    if name == "cipher_evals_per_t":
         eq, g, n_evals, skip = args[0], args[-3], args[-2], args[-1]
-        n_out, n_tables = n_evals - bool(skip), (3 if name.startswith("cipher") else 2)
-        per_t = 5 if name.startswith("cipher") else 1  # x^7 and the eq weight, or the eq weight
-        return FE * (n_tables * eq.shape[-1] + (g if n_tables == 3 else 0) + n_out * g), per_t * n_out * (eq.shape[-1] // 2)
+        n_out = n_evals - bool(skip)
+        # x^7 and the eq weight at each t
+        return FE * (3 * eq.shape[-1] + g + n_out * g), 5 * n_out * (eq.shape[-1] // 2)
     if name == "pow7":  # square, mul, square, mul per element
         n = args[0].shape[-1]
         return FE * 2 * n, 4 * n
@@ -519,8 +544,10 @@ SBOX_DEPTH = 3  # dependent products an S-box of the hash chain (csrc/mimc.cuh)
 
 
 # reduced products a point of the design before the deferred one, at the
-# main path's shapes (cipher_partial_evals: t = 1..8, 5 a t)
-OLD_PRODUCTS = {"gruen_acc": 25, "cipher_coeff_acc": 33, "cipher_partial_evals": 40}
+# main path's shapes (cipher_partial_evals: t = 1..8, 5 a t; the identity
+# rounds: 4 for the coefficients, 1 a t at t = 1, 2)
+OLD_PRODUCTS = {"gruen_acc": 25, "cipher_coeff_acc": 33, "cipher_partial_evals": 40, "identity_acc": 4,
+                "identity_partial_evals": 2}
 
 
 def log_deferred(name: str, bn: int, flush_case) -> None:
@@ -531,13 +558,16 @@ def log_deferred(name: str, bn: int, flush_case) -> None:
         g = flush_case[3].shape[-1]
         half = flush_case[0].shape[-1] // g
     else:
-        g = flush_case[4]
+        g = flush_case[2 if name.startswith("identity") else 4]
         half = flush_case[0].shape[-1] // g // 2
-    tiles = -(-half // K.DEFERRED_TILE)
-    bpg = K._deferred_blocks(half, g, flush_case[0].device)
+    if name.startswith("identity"):
+        tile, flush, bpg = K.IDENTITY_TILE, K.IDENTITY_FLUSH_POINTS, K._identity_blocks(half, g, flush_case[0].device)
+    else:
+        tile, flush, bpg = K.DEFERRED_TILE, K.DEFERRED_FLUSH_POINTS, K._deferred_blocks(half, g, flush_case[0].device)
+    tiles = -(-half // tile)
     log(f"# kernel {name}: bound of the {OLD_PRODUCTS[name]}-product design at the main shapes {old_ms:.6f} ms "
         f"(operations); G={g} x 2^{half.bit_length() - 1} points case: a block sums up to "
-        f"{-(-tiles // bpg) * K.DEFERRED_TILE} points (s32 digit sums flushed every {K.DEFERRED_FLUSH_POINTS})")
+        f"{-(-tiles // bpg) * tile} points (s32 digit sums flushed every {flush})")
 
 
 def log_chain(name: str, ms: float, dev, rng) -> None:

@@ -1,5 +1,6 @@
-// Block reductions of field sums for the round kernels (csrc/round_acc.cu,
-// csrc/partial_evals.cu).
+// Block reductions of field sums, for the per-t cipher kernel of the
+// multiply probe (csrc/partial_evals.cu); the prover's round kernels sum
+// integers instead (csrc/round_acc.cu, namespace deferred).
 //
 // A round kernel sums NS field values over a group's half hypercube. Pass 1
 // runs one thread per point in a grid-stride loop with the NS running sums

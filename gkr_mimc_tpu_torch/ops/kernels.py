@@ -21,7 +21,7 @@ gruen_acc               csrc/round_acc.cu       cipher_gruen_acc (:740) + finish
 cipher_coeff_acc        csrc/round_acc.cu       cipher_coeff_acc (:644) + finish_coeff_acc
 identity_acc            csrc/round_acc.cu       identity_coeff_acc (:651) + finish_coeff_acc
 cipher_partial_evals    csrc/round_acc.cu       cipher_partial_evals (:377), cipher_partial_evals_g (:1211)
-identity_partial_evals  csrc/partial_evals.cu   identity_partial_evals (:411), identity_partial_evals_g (:1223)
+identity_partial_evals  csrc/round_acc.cu       identity_partial_evals (:411), identity_partial_evals_g (:1223)
 gruen_round_scalar      csrc/gruen_round.cu     gruen_round_scalar (:1446)
 pow7                    csrc/sbox.cu            pow7 (:71)
 cipher_layer            csrc/sbox.cu            cipher_layer (:89)
@@ -41,10 +41,12 @@ the CPU. Callers reach the wrappers through this module's attributes
 Tables are group-major: an (8, G*n) table holds G groups of n entries, and
 a per-group scalar is an (8, G) tensor.
 
-The three cipher rounds (``gruen_acc``, ``cipher_coeff_acc``,
-``cipher_partial_evals``) share one pass 1 in ``csrc/round_acc.cu``: the
-reduction deferred past the sum over the points, the sum a byte-digit
-contraction on the tensor cores; they return canonical values.
+Every round sum defers the reduction past the sum over the points, the
+sum a byte-digit contraction on the tensor cores (``csrc/round_acc.cu``):
+the three cipher rounds (``gruen_acc``, ``cipher_coeff_acc``,
+``cipher_partial_evals``) share one pass 1 over the S-box's raw products,
+the two identity rounds (``identity_acc``, ``identity_partial_evals``)
+another over the table's halves; all five return canonical values.
 """
 
 from __future__ import annotations
@@ -62,13 +64,18 @@ from ..poly import lagrange
 from . import build
 
 MIMC_ROUNDS = 91
-_ACC_THREADS = 256  # threads per block of the identity rounds (csrc/reduce.cuh rsum::kThreads)
 # the cipher rounds' deferred contraction (csrc/round_acc.cu, namespace deferred)
 DEFERRED_TILE = 256  # points a tile of pass 1 (deferred::kTile)
 DEFERRED_WINDOWS = 35  # byte windows of a weight with a nonzero byte (deferred::kLiveWins)
 DEFERRED_COLS = 100  # byte columns a sum in the partials (deferred::kCols)
 DEFERRED_FLUSH_POINTS = 32 * DEFERRED_TILE  # s32 digit sums flushed this often (deferred::kFlushTiles tiles)
 DEFERRED_WIDE_WORDS = 26  # 32-bit words of a sum's exact integer in pass 2 (deferred::kWideWords)
+# the identity rounds' deferred contraction (same namespace)
+IDENTITY_TILE = 128  # points a tile of pass 1, one a thread (deferred::kIdTile)
+IDENTITY_WARPS = IDENTITY_TILE // 32  # warps sharing a tile's points (deferred::kIdWarps)
+IDENTITY_COLS = 64  # byte columns a sum in the group sums (deferred::kIdCols)
+IDENTITY_FLUSH_POINTS = 16 * IDENTITY_TILE  # a block's s32 digit sums flushed this often (deferred::kIdFlushTiles)
+IDENTITY_BLOCKS_PER_SM = 3  # pass 1's blocks resident on an SM (63,104 B of shared memory each)
 
 # wrapper -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -85,13 +92,14 @@ KERNELS = {
                   "gkr_mimc_tpu/ops/kernels.py:740 cipher_gruen_acc (call :777), :813 finish_gruen_acc"),
     "cipher_coeff_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu",
                          "gkr_mimc_tpu/ops/kernels.py:644 cipher_coeff_acc (call :630), :1057 finish_coeff_acc"),
-    "identity_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu", "gkr_mimc_tpu/ops/kernels.py:651"),
+    "identity_acc": ("gkr_mimc_tpu_torch/csrc/round_acc.cu",
+                     "gkr_mimc_tpu/ops/kernels.py:651 identity_coeff_acc (call :630), :1057 finish_coeff_acc"),
     "cipher_partial_evals": ("gkr_mimc_tpu_torch/csrc/round_acc.cu",
                              "gkr_mimc_tpu/ops/kernels.py:377 cipher_partial_evals, "
                              ":1211 cipher_partial_evals_g"),
-    "identity_partial_evals": ("gkr_mimc_tpu_torch/csrc/partial_evals.cu",
-                               "gkr_mimc_tpu/ops/kernels.py:411 identity_partial_evals, "
-                               ":1223 identity_partial_evals_g"),
+    "identity_partial_evals": ("gkr_mimc_tpu_torch/csrc/round_acc.cu",
+                               "gkr_mimc_tpu/ops/kernels.py:411 identity_partial_evals (call :424), "
+                               ":1223 identity_partial_evals_g (call :1198)"),
     "gruen_round_scalar": ("gkr_mimc_tpu_torch/csrc/gruen_round.cu", "gkr_mimc_tpu/ops/kernels.py:1446"),
     "pow7": ("gkr_mimc_tpu_torch/csrc/sbox.cu", "gkr_mimc_tpu/ops/kernels.py:71"),
     "cipher_layer": ("gkr_mimc_tpu_torch/csrc/sbox.cu", "gkr_mimc_tpu/ops/kernels.py:89"),
@@ -415,26 +423,12 @@ def mul_scalar_plain(x, r):
 # ---------------------------------------------------------------------------
 
 
-def _blocks_per_group(half: int, g: int) -> int:
-    return max(1, min(-(-half // _ACC_THREADS), 2048 // g))
-
-
 def _round_geometry(name: str, tables, g: int) -> int:
     """Check equal group-major (8, G*n) tables; -> half = n/2."""
     total = tables[0].shape[-1]
     for t in tables:
         _expect(name, t, (L, total))
     return _group_size(name, total, g, 2) // 2
-
-
-def _round_sums(name: str, entry: str, ns: int, g: int, half: int, ins, *extra) -> torch.Tensor:
-    """Launch a two-pass round-sum kernel on its input tensors ``ins``:
-    (g * bpg, ns, 8) partials scratch -> (8, ns, G)."""
-    bpg = _blocks_per_group(half, g)
-    partial = _empty((g * bpg, ns, L), ins[0])
-    out = _empty((L, ns, g), ins[0])
-    _launch(name, entry, ins[0].device, *map(_ptr, ins), _ptr(partial), _ptr(out), half, g, bpg, *extra)
-    return out
 
 
 def _cipher_line(x0, x1, ark, g: int):
@@ -533,14 +527,32 @@ def cipher_coeff_acc_plain(eq, x0, x1, ark, g):
     return fr.canonicalize(fr.add(torch.cat([e_sums, zero], 1), torch.cat([zero, de_sums], 1)))
 
 
+def _identity_blocks(half: int, g: int, device: torch.device) -> int:
+    """Blocks a group of the identity rounds' pass 1: IDENTITY_BLOCKS_PER_SM
+    an SM in all, at most one a tile."""
+    return max(1, min(-(-half // IDENTITY_TILE), -(-IDENTITY_BLOCKS_PER_SM * _sm_count(device) // g)))
+
+
+def _identity_round(name: str, entry: str, n_out: int, g: int, half: int, eq, x, *extra) -> torch.Tensor:
+    """Launch an identity round (pass 1 on eq's and x's bottom and top
+    halves, then its finisher) -> (8, n_out, G) canonical."""
+    sums = torch.empty((g, 4, IDENTITY_COLS), dtype=torch.int64, device=eq.device)  # zeroed by the entry
+    out = _empty((L, n_out, g), eq)
+    _launch(name, entry, eq.device, _ptr(eq), _ptr(x), _ptr(sums), _ptr(out), half, g,
+            _identity_blocks(half, g, eq.device), *extra)
+    return out
+
+
 def identity_acc(eq: torch.Tensor, x: torch.Tensor, g: int) -> torch.Tensor:
     """Identity round in coefficient form: eq, x (8, G*n) -> P (8, 3, G)
-    with e = eq_bot, de = eq_top - e, u = x_bot, v = x_top - u:
-    P0 = <e,u>, P1 = <e,v> + <de,u>, P2 = <de,v>."""
+    canonical, with e = eq_bot, de = eq_top - e, u = x_bot, v = x_top - u:
+    P0 = <e,u>, P1 = <e,v> + <de,u>, P2 = <de,v>. The kernel sums the four
+    products of the halves, <eq_bot | eq_top, x_bot | x_top>, and combines
+    them."""
     half = _round_geometry("identity_acc", [eq, x], g)
     if _on_cpu("identity_acc", eq, x):
         return identity_acc_plain(eq, x, g)
-    return _round_sums("identity_acc", "gkr_identity_acc", 3, g, half, [eq, x])
+    return _identity_round("identity_acc", "gkr_identity_acc", 3, g, half, eq, x)
 
 
 def identity_acc_plain(eq, x, g):
@@ -550,7 +562,7 @@ def identity_acc_plain(eq, x, g):
     de, v = diff.unbind(1)
     eu, ev, deu, dev = fr.mul(torch.stack([e, e, de, de], 1), torch.stack([u, v, u, v], 1)).unbind(1)
     terms = torch.stack([eu, fr.add(ev, deu), dev], 1)  # (8, 3, G, half)
-    return fr.reduce_sum(terms, 2)
+    return fr.canonicalize(fr.reduce_sum(terms, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -612,18 +624,20 @@ def cipher_evals_per_t(eq, x0, x1, ark, g, n_evals, skip_t0):
 def identity_partial_evals(eq: torch.Tensor, x: torch.Tensor, g: int, n_evals: int,
                            skip_t0: bool) -> torch.Tensor:
     """Identity round in evaluation form: eq, x (8, G*n) ->
-    (8, n_evals - skip_t0, G), column t the sum of eq_t * x_t."""
+    (8, n_evals - skip_t0, G) canonical, column t the sum of eq_t * x_t at
+    t = 0..2 (1, 2 with skip_t0: the claim trick). The kernel sums the
+    coefficients as ``identity_acc`` does and evaluates them at t."""
     _check_evals("identity_partial_evals", n_evals, IDENTITY_EVALS)
     half = _round_geometry("identity_partial_evals", [eq, x], g)
     if _on_cpu("identity_partial_evals", eq, x):
         return identity_partial_evals_plain(eq, x, g, n_evals, skip_t0)
-    return _round_sums("identity_partial_evals", "gkr_identity_partial_evals", n_evals - bool(skip_t0), g,
-                       half, [eq, x], n_evals, int(bool(skip_t0)))
+    return _identity_round("identity_partial_evals", "gkr_identity_partial_evals", n_evals - bool(skip_t0), g,
+                           half, eq, x, n_evals, int(bool(skip_t0)))
 
 
 def identity_partial_evals_plain(eq, x, g, n_evals, skip_t0):
     e, u = stack_t(torch.stack([eq, x], 1).reshape(L, 2, g, -1), n_evals, skip_t0).unbind(1)
-    return fr.reduce_sum(fr.mul(e, u), 2)
+    return fr.canonicalize(fr.reduce_sum(fr.mul(e, u), 2))
 
 
 # ---------------------------------------------------------------------------

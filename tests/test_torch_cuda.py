@@ -43,6 +43,11 @@ def _cases(rng, dev):
     direct_edges = [(top, top, top, top[:, :1].contiguous(), 1),
                     (top, cyc[:, :32].contiguous(), cyc[:, 32:].contiguous(), top[:, :1].contiguous(), 1),
                     (cyc, cyc.flip(1).contiguous(), cyc, cyc[:, 3:5].contiguous(), 2)]
+    # the identity rounds: ragged halves (64 points), G = 3 over 256 tiles a group (not a multiple
+    # of its blocks), the same edges, and G = 4 x 2^20, where a block sums more points than one
+    # flush interval
+    identity = [(r(128), r(128), 1), (r(3 << 16), r(3 << 16), 3), (top, top, 1), (top, cyc[:, :32].contiguous(), 1),
+                (cyc, cyc.flip(1).contiguous(), 2), (r(4 << 20), r(4 << 20), 4)]
     return {
         "mimc_witness": [(r(1), r(1), arks), (r(300), r(300), arks)],
         "mimc_hash": [(r(1),), (r(9),), (r(130),)],
@@ -68,13 +73,14 @@ def _cases(rng, dev):
         "cipher_coeff_acc": [(r(2), r(2), r(2), r(1), 1), (r(3 * 1024), r(3 * 1024), r(3 * 1024), r(3), 3),
                              (r(1 << 16), r(1 << 16), r(1 << 16), r(1), 1)] + direct_edges
                             + [(r(4 << 20), r(4 << 20), r(4 << 20), r(4), 4)],
-        "identity_acc": [(r(2), r(2), 1), (r(3 * 1024), r(3 * 1024), 3), (r(1 << 16), r(1 << 16), 1)],
+        "identity_acc": [(r(2), r(2), 1), (r(3 * 1024), r(3 * 1024), 3), (r(1 << 16), r(1 << 16), 1)] + identity,
         "cipher_partial_evals": [(r(2), r(2), r(2), r(1), 1, 9, False), (r(4 * 512), r(4 * 512), r(4 * 512), r(4), 4, 9, True),
                                  (r(1 << 16), r(1 << 16), r(1 << 16), r(1), 1, 9, True)]
                                 + [e + (9, skip) for e in direct_edges for skip in (False, True)]
                                 + [(r(4 << 20), r(4 << 20), r(4 << 20), r(4), 4, 9, True)],
         "identity_partial_evals": [(r(2), r(2), 1, 3, True), (r(4 * 512), r(4 * 512), 4, 3, False),
-                                   (r(1 << 16), r(1 << 16), 1, 3, True)],
+                                   (r(1 << 16), r(1 << 16), 1, 3, True)]
+                                  + [e + (3, skip) for e in identity for skip in (False, True)],
         "pow7": [(r(1),), (r(300),), (r(1 << 16),)],
         "cipher_layer": [(r(1), r(1), r(1)[:, 0].contiguous()), (r(300), r(300), r(1)[:, 0].contiguous()),
                          (r(1 << 16), r(1 << 16), r(1)[:, 0].contiguous())],

@@ -184,6 +184,7 @@ def test_identity_acc_matches_jax(round_case):
     (_, x0, x1, _, g), wants = round_case
     got = K.identity_acc(x0, x1, g)  # (8, 3, G)
     assert got.shape == (L, 3, g)
+    assert all(v < jfr.P for v in fr.limb_values(got.reshape(L, -1)))  # canonical
     for gi, (_, p) in enumerate(wants):
         assert vals(got[:, :, gi].contiguous()) == jvals(p)
 
@@ -239,6 +240,7 @@ def test_partial_evals_match_jax(partial_evals_case, skip_t0):
         "identity": K.identity_partial_evals(eq, x0, g, 3, skip_t0),
     }
     assert got["cipher"].shape == (L, 9 - skip_t0, g) and got["identity"].shape == (L, 3 - skip_t0, g)
+    assert all(v < jfr.P for v in fr.limb_values(got["identity"].reshape(L, -1)))  # canonical
     for kind, out in got.items():
         for gi in range(g):
             assert vals(out[:, :, gi].contiguous()) == jvals(want[kind, gi, skip_t0])
