@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--bn 22]
 
 Builds the CUDA kernels from gkr_mimc_tpu_torch/csrc at first use (one
-nvcc per source, in parallel), then:
+nvcc per source, in parallel) and, beside them, the gadget's host runtime
+(native/bn254.cpp, one g++), then:
 
 1. toolchain and card: torch, CUDA, nvcc, the card's name and power limit,
    the build time and nvcc's register report, with a summary line of the
@@ -63,7 +64,18 @@ nvcc per source, in parallel), then:
    op rates and the tensor-core dot (beside torch._int_mm(m, x) * reps),
    check_mxu_mul's field check of both multiplies, the Montgomery-product
    split, the S-box chain latency in both layouts, the partial-evals
-   multiply A/B.
+   multiply A/B;
+10. the standalone gadget at bn = --bn - 4 (2^18 hashes at the default,
+   the low end of the reference's gadget benchmark range): the native host
+   runtime built, 2^bn - 3 updates through ``update_hasher_batch`` (the
+   first 2^16 public), ``make_setup``, ``close(check=True)`` (pad, commit
+   with the split G1 MSM, rho, witness, prove, self-verify, serialize) and
+   ``verify_gadget``, each stage timed; the wire vector's size and its
+   ``proof_from_vec`` round trip, three tamper probes (rho, the first
+   proof element, a private output), the batch's new states against the
+   host update at 257 instances, the launch counts of that run against the
+   expected ones; then one gadget's close() at bn = 10 through the kernels
+   and again through the plain twins: the same proof.
 
 Each path's launch counts are read from its own run, the counts set to 0
 just before it: the kernels of the default path from phase 5,
@@ -73,6 +85,7 @@ its evals run, mul_scalar (which builds single-claim eq tables below
 hashers' S-box) and cipher_layer (the generic witness's cipher layers;
 the MiMC walk runs its tails, gate included, in tail_rounds) from phase
 8, and the six probes from phase 9's run of the scripts' counterparts.
+Phase 10's counts are logged on their own line, not in the kernels line.
 
 Prints one JSON line of per-kernel results, then the nvidia-smi line, then
 {"ok": true, "device": {...}} as the last line. Exits non-zero on any
@@ -82,12 +95,14 @@ failure, including when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -100,13 +115,16 @@ sys.path.insert(0, str(ROOT))
 from gkr_mimc_tpu_torch.circuits.circuit import assign  # noqa: E402
 from gkr_mimc_tpu_torch.fields import fr  # noqa: E402
 from gkr_mimc_tpu_torch.fields.bn254 import L, P  # noqa: E402
+from gkr_mimc_tpu_torch import native  # noqa: E402
+from gkr_mimc_tpu_torch.gadget import GadgetVerifyError, GkrGadget, proof_from_vec, proof_size, verify_gadget  # noqa: E402
+from gkr_mimc_tpu_torch.gadget import gadget as gadget_mod  # noqa: E402
 from gkr_mimc_tpu_torch.gadget.serialize import proof_to_vec  # noqa: E402
 from gkr_mimc_tpu_torch.gkr import prover as gkr_prover  # noqa: E402
 from gkr_mimc_tpu_torch.gkr import verifier as gkr_verifier  # noqa: E402
 from gkr_mimc_tpu_torch.hashes import gmimc as gmimc_hash  # noqa: E402
 from gkr_mimc_tpu_torch.hashes import poseidon as poseidon_hash  # noqa: E402
 from gkr_mimc_tpu_torch.hashes.ark import arks_mont  # noqa: E402
-from gkr_mimc_tpu_torch.hashes.mimc import mimc_hash, mimc_hash_device, mimc_keyed_permutation  # noqa: E402
+from gkr_mimc_tpu_torch.hashes.mimc import mimc_hash, mimc_hash_device, mimc_keyed_permutation, mimc_update  # noqa: E402
 from gkr_mimc_tpu_torch.models import gmimc, poseidon  # noqa: E402
 from gkr_mimc_tpu_torch.models.mimc import assign_fused, mimc_circuit  # noqa: E402
 from gkr_mimc_tpu_torch.ops import build  # noqa: E402
@@ -1307,6 +1325,165 @@ def phase_probes(dev) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the standalone gadget
+# ---------------------------------------------------------------------------
+
+GADGET_PUBLIC = 1 << 16  # public entries at the front of phase 10's batch
+# close()'s stages, timed through the callables close() resolves at call time
+CLOSE_STAGES = ((gadget_mod.GkrGadget, "get_initial_randomness", "commit + rho"),
+                (gadget_mod.circ_mod, "assign", "witness"),
+                (gadget_mod.gkr_prover, "prove", "prove"),
+                (gadget_mod.gkr_verifier, "verify", "self-verify"),
+                (gadget_mod, "proof_to_vec", "serialize"))
+
+
+@contextmanager
+def close_stage_timer(times: dict):
+    """Seconds of each stage of GkrGadget.close(), with a synchronise
+    before and after each."""
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in CLOSE_STAGES]
+
+    def timed(fn, stage):
+        def run(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            times[stage] = times.get(stage, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    for (owner, attr, stage), (_, _, fn) in zip(CLOSE_STAGES, saved):
+        setattr(owner, attr, timed(fn, stage))
+    try:
+        yield
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def gadget_updates(bn: int, dev) -> tuple:
+    """A gadget on ``dev`` fed 2^bn - 3 updates (so close() pads) in two
+    batches, the first min(2^16, n / 4) public: states are the generator's
+    stream at 0, messages the stream at n. -> (gadget, states, msgs, the
+    batch's new states)."""
+    n = (1 << bn) - 3
+    stream = random_fr_array(2 * n)
+    states, msgs = stream[:n], stream[n:]
+    n_pub = min(GADGET_PUBLIC, n // 4)
+    g = GkrGadget(device=dev)
+    out = g.update_hasher_batch(states[:n_pub], msgs[:n_pub], public=True)
+    out += g.update_hasher_batch(states[n_pub:], msgs[n_pub:])
+    return g, states, msgs, out
+
+
+def gadget_tamper_probes(g, setup, proof, dev) -> None:
+    """rho + 1, the first proof element + 1 and the last private output + 1
+    must each be rejected."""
+    c, store = g.circuit, g.io_store
+    k = max(i for i, public in enumerate(store.public) if not public)
+
+    def reject(what, bad_proof):
+        try:
+            verify_gadget(c, setup, bad_proof, store, dev)
+        except (GadgetVerifyError, gkr_verifier.GKRError) as e:
+            log(f"# gadget tamper probe ({what}) rejected: {type(e).__name__}: {e}")
+        else:
+            raise AssertionError(f"gadget: a tampered {what} was accepted")
+
+    reject("rho", dataclasses.replace(proof, initial_randomness=(proof.initial_randomness + 1) % P))
+    reject("proof vector", dataclasses.replace(proof, proof_vec=[(proof.proof_vec[0] + 1) % P] + proof.proof_vec[1:]))
+    saved = store.outputs[k]
+    store.outputs[k] = (saved + 1) % P
+    try:
+        reject(f"private output {k}", proof)
+    finally:
+        store.outputs[k] = saved
+
+
+def gadget_cross_check(bn: int, dev) -> None:
+    """One gadget's close() through the kernels, then again through the
+    plain twins on the same CUDA tensors: the same proof."""
+    g, *_ = gadget_updates(bn, dev)
+    setup = g.make_setup()
+    proof = g.close(setup, check=True)
+    with plain_twins():
+        plain = g.close(setup, check=True)
+    if plain != proof:
+        raise AssertionError(f"gadget bn={bn}: kernel and plain close() differ")
+    log(f"# gadget bn={bn}: kernel and plain close() give the same rho, commitment and proof vector "
+        f"({len(proof.proof_vec)} elements)")
+
+
+def phase_gadget(bn: int, dev, card: str) -> dict:
+    """Phase 10: GkrGadget at 2^bn hashes through its user entry points
+    (update_hasher_batch, make_setup, close, verify_gadget) with the
+    native host runtime; the wire vector's size and round trip, three
+    tamper probes, the batch's outputs against the host update at sampled
+    instances; then the kernel/plain cross-check at bn = 10. Returns the
+    stage seconds and the launch counts of the 2^bn run."""
+    if not native.available():
+        raise AssertionError("phase 10: the native host runtime (native/bn254.cpp) did not build")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    times: dict = {}
+    sync()
+    t0 = time.perf_counter()
+    g, states, msgs, out = gadget_updates(bn, dev)
+    sync()
+    times["batch update"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    setup = g.make_setup()
+    times["setup"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with close_stage_timer(times):
+        proof = g.close(setup, check=True)
+    sync()
+    close_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verify_gadget(g.circuit, setup, proof, g.io_store, dev)
+    sync()
+    times["verify_gadget"] = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    times["close, other (pad, qPrime, input tables, output check)"] = close_s - sum(
+        times[stage] for _, _, stage in CLOSE_STAGES)
+
+    c, n = g.circuit, len(states)
+    if len(proof.proof_vec) != proof_size(c, bn) or proof.bn != bn:
+        raise AssertionError(f"gadget: proof of bN {proof.bn}, {len(proof.proof_vec)} elements, "
+                             f"expected bN {bn}, {proof_size(c, bn)}")
+    if proof_to_vec(c, proof_from_vec(c, bn, proof.proof_vec, dev)) != proof.proof_vec:
+        raise AssertionError("gadget: proof_from_vec -> proof_to_vec changed the vector")
+    idx = sampled(n)
+    if [out[i] for i in idx] != [mimc_update(states[i], msgs[i]) for i in idx]:
+        raise AssertionError("gadget: update_hasher_batch disagrees with the host update")
+    gadget_tamper_probes(g, setup, proof, dev)
+    expected = expected_launches(bn, "gruen")
+    expected["cipher_layer"] = 3 * 91  # the permutation of each of the two batches, and assign's cipher layers
+    # the generic witness (assign) in place of mimc_witness
+    require_launched(launches, [k for k in PATH_KERNELS["gruen"] if k != "mimc_witness"] + ["cipher_layer"],
+                     "the gadget")
+    same = all(launches[k] == v for k, v in expected.items())
+    log(f"# launches in the gadget run: {json.dumps(launches)}")
+    log(f"# expected: {json.dumps(expected)}; {'as expected' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("launches in the gadget run differ from the expected counts")
+    total = sum(times.values())
+    log(f"# gadget bn={bn} on {card}: {n} updates ({sum(g.io_store.public)} public), "
+        f"{len(setup.pub_k_gkr) + len(setup.priv_k_gkr_sigma)} committed io scalars; verified, the three tamper "
+        f"probes rejected, the batch equal to the host update at {len(idx)} instances; "
+        f"{total:.3f} s in all, {(1 << bn) / total:,.0f} hashes/s (batch update to verify_gadget), "
+        f"peak memory {peak_gb:.2f} GB")
+    log(f"# gadget stages, s: {json.dumps({k: round(v, 3) for k, v in times.items()})}")
+    del g, setup, proof, out
+    torch.cuda.empty_cache()
+    gadget_cross_check(min(10, bn), dev)
+    return {"bn": bn, "times": times, "launches": launches, "peak_gb": peak_gb}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bn", type=int, default=22, help="log2 of the hashes proven on the main path")
@@ -1324,8 +1501,12 @@ def main() -> int:
     log(f"# nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
     log(f"# card: {card}")
     t0 = time.perf_counter()
-    build.library()
-    log(f"# kernels built in {time.perf_counter() - t0:.1f} s -> {build.library_path().name}")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native_build = pool.submit(native.build)  # g++ of phase 10's host runtime beside the nvcc builds
+        build.library()
+        log(f"# kernels built in {time.perf_counter() - t0:.1f} s -> {build.library_path().name}")
+        log(f"# native host runtime built beside them -> {native_build.result().name} "
+            f"({time.perf_counter() - t0:.1f} s)")
     report = Path(f"{build.library_path()}.log")
     if report.exists():
         text = report.read_text()
@@ -1366,6 +1547,8 @@ def main() -> int:
     done("8")
     probes = phase_probes(dev)  # 9.
     done("9")
+    phase_gadget(bn - 4, dev, card)  # 10. 2^18 hashes at the default --bn
+    done("10")
 
     # each kernel's launches from the run of the path that runs it
     counted_on = {"cipher_coeff_acc": ("phase 7 coeff", paths["coeff"]),

@@ -13,6 +13,20 @@ _RAND_XOR = 0xF45C9DF123F
 _U64 = 1 << 64
 
 
+def log2_floor(x: int) -> int:
+    """The largest k with 2**k <= x (0 for x <= 1)."""
+    res = 0
+    while (1 << (res + 1)) <= x:
+        res += 1
+    return res
+
+
+def log2_ceil(x: int) -> int:
+    """The smallest k with 2**k >= x (0 for x <= 1)."""
+    f = log2_floor(x)
+    return f + (0 if x == (1 << f) else 1)
+
+
 def get_challenge(seed: list[int]) -> int:
     """Fiat-Shamir challenge = MimcHash(seed)."""
     return mimc_hash(seed)

@@ -1,19 +1,19 @@
-"""The port's field (gkr_mimc_tpu_torch.fields) against the JAX package.
+"""The port's field constants, round constants, layout conversions and
+deterministic inputs against the JAX package; the port's entry points
+default to the card; the port imports without JAX.
 
-Same integers go through gkr_mimc_tpu.fields.fr (16-bit limbs) and
-gkr_mimc_tpu_torch.fields.fr (32-bit limbs); results are compared as
-canonical field values, exactly. Inputs include lazy representatives up to
-2p - 1. Both of the port's paths run: host ints for small CPU batches and
-the torch limb arithmetic (the one the card uses) for large ones.
+The field operations are held against the JAX package in
+tests/test_torch_field_ops.py, the lazy arithmetic's two paths in
+tests/test_torch_field_lazy.py (seven cases or fewer a file, as
+tests/test_torch_models.py explains).
+
+    python -m pytest tests/test_torch_field*.py -q -p no:cacheprovider
 """
 
-import random
 import subprocess
 import sys
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,73 +28,9 @@ from gkr_mimc_tpu_torch.hashes import ark, ark_data
 from gkr_mimc_tpu_torch.hashes.ark import arks_mont
 from gkr_mimc_tpu_torch.utils import common
 from gkr_mimc_tpu_torch.utils.convert import from_jax_rows, ints_to_rows, rows_to_ints, to_jax_rows
+from torch_common import lazy_ints
 
 P = bn254.P
-EDGE = [0, 1, 2, P - 2, P - 1, P, P + 1, 2 * P - 2, 2 * P - 1, (1 << 255) % P, 0xFFFFFFFF]
-
-
-def _lazy_ints(n, seed):
-    rng = random.Random(seed)
-    vals = EDGE + [rng.randrange(2 * P) for _ in range(n - len(EDGE))]
-    return vals[:n]
-
-
-def _both(vals):
-    """The same held integers in both layouts: (port (8, n), JAX (16, n))."""
-    t = fr._limb_tensor(vals)
-    return t, jnp.asarray(to_jax_rows(t))
-
-
-@pytest.fixture(scope="module")
-def operands():
-    return _both(_lazy_ints(160, 1)), _both(_lazy_ints(160, 2)[::-1])
-
-
-@pytest.mark.parametrize("op", ["add", "sub", "mul", "pow7", "to_mont", "from_mont", "canonicalize"])
-def test_ops_match_jax(operands, op):
-    """160 elements take the torch limb path, the first 40 the host-int
-    path; both equal the JAX package's values."""
-    (a, ja), (b, jb) = operands
-    assert 40 <= fr.SMALL < 160
-    f, jf = getattr(fr, op), jax.jit(getattr(jfr, op))
-    if op in ("add", "sub", "mul"):
-        want, full, small = jf(ja, jb), f(a, b), f(a[:, :40], b[:, :40])
-    else:
-        want, full, small = jf(ja), f(a), f(a[:, :40])
-    want = jfr.to_ints(want)
-    assert fr.to_ints(full) == want
-    assert fr.to_ints(small) == want[:40]
-
-
-def test_ops_stay_lazy_and_agree_across_paths():
-    """Both paths give the same bits (not only values), all below 2p."""
-    a, _ = _both(_lazy_ints(100, 3))
-    b, _ = _both(_lazy_ints(100, 4))
-    small = [(fr.mul(a[:, i : i + 1], b[:, i : i + 1]), fr.add(a[:, i : i + 1], b[:, i : i + 1])) for i in range(100)]
-    big_mul, big_add = fr.mul(a, b), fr.add(a, b)
-    assert torch.equal(torch.cat([m for m, _ in small], 1), big_mul)
-    assert torch.equal(torch.cat([s for _, s in small], 1), big_add)
-    assert max(fr.limb_values(big_mul)) < 2 * P
-    assert fr.limb_values(fr.canonicalize(big_mul)) == [v % P for v in fr.limb_values(big_mul)]
-
-
-@pytest.mark.parametrize("c", [1, 7, 21, 35])
-def test_mul_small_is_the_held_multiple_mod_2p(c):
-    """c * a by doubling and adding: the held integer c * a mod 2p, the
-    same bits on the host-int and the torch limb paths (the binomial
-    scaling of cipher_coeff_acc)."""
-    vals = _lazy_ints(100, 6)
-    a = fr._limb_tensor(vals)
-    want = [c * v % (2 * P) for v in vals]
-    assert fr.limb_values(fr.mul_small(a, c)) == want
-    assert fr.limb_values(fr.mul_small(a[:, :40], c)) == want[:40]
-
-
-def test_reduce_sum_matches_host_sums():
-    vals = _lazy_ints(3 * 37, 5)
-    t = fr._limb_tensor(vals).reshape(8, 3, 37)
-    got = fr.to_ints(fr.reduce_sum(t, 1))
-    assert got == [sum(vals[37 * i : 37 * i + 37]) * bn254.RINV % P for i in range(3)]
 
 
 def test_constants_and_arks_match_jax():
@@ -106,7 +42,7 @@ def test_constants_and_arks_match_jax():
 
 
 def test_layout_converters_round_trip():
-    vals = _lazy_ints(64, 6)
+    vals = lazy_ints(64, 6)
     t = fr._limb_tensor(vals).reshape(8, 4, 16)
     j = to_jax_rows(t)
     assert j.shape == (16, 4, 16) and j.max() < 1 << 16
@@ -129,8 +65,11 @@ def test_random_inputs_match_jax():
 def test_entry_points_default_to_the_card():
     """Naming no device puts the tensors on the card; with no card the
     call raises (no fallback to the CPU)."""
+    from gkr_mimc_tpu_torch import gadget
+    from gkr_mimc_tpu_torch.models.mimc import mimc_circuit
     from gkr_mimc_tpu_torch.sumcheck import testing
 
+    c = mimc_circuit()
     calls = [
         lambda: common.random_fr_device(4),
         lambda: common.grouped_inputs(1, 2)[0],
@@ -138,6 +77,8 @@ def test_entry_points_default_to_the_card():
         lambda: testing.initialize_multi_instance(1, 2)[0][0],
         lambda: testing.to_device_qprimes([[1, 2]]),
         lambda: testing.to_device_claims([3]),
+        lambda: gadget.GkrGadget(),  # its .device
+        lambda: gadget.proof_from_vec(c, 1, [0] * gadget.proof_size(c, 1)).qprimes[-1],
     ]
     for call in calls:
         if torch.cuda.is_available():
@@ -145,6 +86,10 @@ def test_entry_points_default_to_the_card():
         else:
             with pytest.raises((AssertionError, RuntimeError)):
                 call()
+    if not torch.cuda.is_available():  # verify_gadget returns nothing to look at
+        with pytest.raises((AssertionError, RuntimeError)):
+            gadget.verify_gadget(c, gadget.GadgetSetup([], [], 1, 1), gadget.GadgetProof(0, 0, (0, 1, 0), []),
+                                 gadget.IoStore())
 
 
 def test_package_imports_without_jax():

@@ -10,7 +10,7 @@ identity rounds) at G lanes; on the CPU every kernel wrapper takes its
 plain twin.
 
 The grouped GKR walk on the truncated circuit is checked lane by lane
-against the JAX walk in tests/test_torch_gkr.py, which shares the JAX
+against the JAX walk in tests/test_torch_gkr_jax.py, which shares the JAX
 program and the lane-0 walk with the single-instance comparison there.
 """
 
