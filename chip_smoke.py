@@ -75,7 +75,19 @@ nvcc per source, in parallel) and, beside them, the gadget's host runtime
    proof element, a private output), the batch's new states against the
    host update at 257 instances, the launch counts of that run against the
    expected ones; then one gadget's close() at bn = 10 through the kernels
-   and again through the plain twins: the same proof.
+   and again through the plain twins: the same proof;
+11. the Groth16 pipeline at bN = 2 (the shape of the JAX package's
+   test_gadget_pipeline_batched_hasher; the reference benchmarks
+   2^18-2^24 hashes, cut by the host's pure-Python tracer): GadgetCircuit
+   over 4 messages hashed by one ``update_hasher_batch`` (the hash hint
+   and the GKR prover hint on the card, all else on the host),
+   ``compile()`` (the R1CS sizes logged), ``setup(seed)``,
+   ``prove(seed)`` and ``groth16.verify``, each stage timed (solve's and
+   compile's card parts, the in-circuit verifier, computeH, the MSMs);
+   three tamper probes (KrsGkrPriv, the first public value, Ar) that must
+   raise Groth16VerifyError; the solve trace's GKR inputs proven again
+   through the plain twins (the same proof vector); the run's launch
+   counts, every kernel, against the expected ones.
 
 Each path's launch counts are read from its own run, the counts set to 0
 just before it: the kernels of the default path from phase 5,
@@ -85,7 +97,8 @@ its evals run, mul_scalar (which builds single-claim eq tables below
 hashers' S-box) and cipher_layer (the generic witness's cipher layers;
 the MiMC walk runs its tails, gate included, in tail_rounds) from phase
 8, and the six probes from phase 9's run of the scripts' counterparts.
-Phase 10's counts are logged on their own line, not in the kernels line.
+Phases 10 and 11 log their counts on lines of their own, not in the
+kernels line.
 
 Prints one JSON line of per-kernel results, then the nvidia-smi line, then
 {"ok": true, "device": {...}} as the last line. Exits non-zero on any
@@ -101,6 +114,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -117,7 +131,11 @@ from gkr_mimc_tpu_torch.fields import fr  # noqa: E402
 from gkr_mimc_tpu_torch.fields.bn254 import L, P  # noqa: E402
 from gkr_mimc_tpu_torch import native  # noqa: E402
 from gkr_mimc_tpu_torch.gadget import GadgetVerifyError, GkrGadget, proof_from_vec, proof_size, verify_gadget  # noqa: E402
+from gkr_mimc_tpu_torch.gadget import GadgetCircuit  # noqa: E402
+from gkr_mimc_tpu_torch.gadget import bn254_g1 as g1  # noqa: E402
 from gkr_mimc_tpu_torch.gadget import gadget as gadget_mod  # noqa: E402
+from gkr_mimc_tpu_torch.gadget import groth16 as groth16_mod  # noqa: E402
+from gkr_mimc_tpu_torch.gadget import incircuit as incircuit_mod  # noqa: E402
 from gkr_mimc_tpu_torch.gadget.serialize import proof_to_vec  # noqa: E402
 from gkr_mimc_tpu_torch.gkr import prover as gkr_prover  # noqa: E402
 from gkr_mimc_tpu_torch.gkr import verifier as gkr_verifier  # noqa: E402
@@ -1484,6 +1502,169 @@ def phase_gadget(bn: int, dev, card: str) -> dict:
     return {"bn": bn, "times": times, "launches": launches, "peak_gb": peak_gb}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the Groth16 pipeline
+# ---------------------------------------------------------------------------
+
+PIPELINE_BN = 2  # the shape of tests/test_groth16.py::test_gadget_pipeline_batched_hasher
+# the stages timed inside the pipeline, through the callables its modules
+# resolve at call time; (owner, attribute, label, runs on the card)
+PIPELINE_STAGES = ((incircuit_mod.GadgetCircuit, "solve", "solve", False),
+                   (incircuit_mod, "mimc_keyed_permutation_device", "hash hint", True),
+                   (incircuit_mod.circ_mod, "assign", "assign", True),
+                   (incircuit_mod.gkr_prover, "prove", "GKR prove", True),
+                   (incircuit_mod.snark_gkr.Proof, "assert_valid", "in-circuit verifier", False),
+                   (groth16_mod, "compute_h", "computeH", False),
+                   (native, "msm", "G1 MSMs", False),
+                   (native, "msm_g2", "G2 MSM", False))
+
+
+@contextmanager
+def pipeline_stage_timer(times: dict, calls: dict):
+    """Seconds of each stage in PIPELINE_STAGES, under the label of the
+    stage that called it ("compile: hash hint", "solve: GKR prove", ...;
+    the computeH and MSM calls of groth16.prove overlap on threads, each
+    timed from its own start to its own end). A card stage synchronises
+    before and after. ``calls`` keeps the last arguments and result of
+    each card stage."""
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _, _ in PIPELINE_STAGES]
+    outer = ["compile"]
+    lock = threading.Lock()
+
+    def timed(fn, label, card):
+        def run(*args, **kwargs):
+            if card:
+                sync()
+            if label == "solve":
+                outer.append("solve")
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                if card:
+                    sync()
+            finally:
+                if label == "solve":
+                    outer.pop()
+            key = label if label == "solve" else f"{outer[-1]}: {label}"
+            with lock:
+                times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+                if card:
+                    calls[label] = (args, out)
+            return out
+        return run
+
+    for (owner, attr, label, card), (_, _, fn) in zip(PIPELINE_STAGES, saved):
+        setattr(owner, attr, timed(fn, label, card))
+    try:
+        yield outer
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def pipeline_expected_launches(bn: int) -> dict:
+    """Every kernel's launches over two traces (compile, solve), each with
+    one batched hash hint (91 cipher_layer launches), assign's 91 cipher
+    layers and one GKR walk (its single multi_eq build of the identity
+    layer's eq table) without the walk's verification, which runs in the
+    circuit on the host."""
+    walk = {**{name: 0 for name in K.KERNELS}, **expected_launches(bn, "gruen"), "multi_eq": 1}
+    return {**{k: 2 * v for k, v in walk.items()}, "cipher_layer": 2 * 2 * 91}
+
+
+def pipeline_tamper_probes(proof, vk, public_values) -> None:
+    """KrsGkrPriv replaced (as tests/test_groth16.py does), the first public
+    value + 1 and Ar replaced must each raise Groth16VerifyError."""
+    gen = g1.to_jac(g1.GEN)
+    bad_public = [(public_values[0] + 1) % P] + list(public_values[1:])
+    for what, bad, pub in (("krs_gkr_priv", dataclasses.replace(proof, krs_gkr_priv=g1.scalar_mul(gen, 123)),
+                            public_values),
+                           ("public value 0 + 1", proof, bad_public),
+                           ("ar", dataclasses.replace(proof, ar=g1.scalar_mul(proof.ar, 2)), public_values)):
+        try:
+            groth16_mod.verify(bad, vk, pub)
+        except groth16_mod.Groth16VerifyError as e:
+            log(f"# pipeline tamper probe ({what}) rejected: {e}")
+        else:
+            raise AssertionError(f"pipeline: a tampered {what} was accepted")
+
+
+def phase_pipeline(bn: int, dev, card: str) -> dict:
+    """Phase 11: GadgetCircuit over 2^bn messages hashed by one
+    update_hasher_batch (the hints on the card), compile, setup(seed),
+    prove(seed), groth16.verify, each stage timed; three tamper probes;
+    the solve trace's GKR inputs proven again through the plain twins (the
+    same proof vector); the run's launch counts against the expected ones.
+    Returns the stage seconds, the R1CS sizes and the launch counts."""
+    if not native.available():
+        raise AssertionError("phase 11: the native host runtime (native/bn254.cpp) did not build")
+    n = 1 << bn
+    msgs = random_fr_array(n)
+
+    def define(cs, gadget):
+        states = [cs.witness(0) for _ in range(n)]
+        gadget.update_hasher_batch(cs, states, [cs.witness(m) for m in msgs])
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    times: dict = {}
+    calls: dict = {}
+    with pipeline_stage_timer(times, calls) as outer:
+        t0 = time.perf_counter()
+        circ = GadgetCircuit(define, device=dev)
+        compiled = circ.compile()
+        times["compile"] = time.perf_counter() - t0
+        r1cs = compiled.r1cs
+        sizes = {"constraints": len(r1cs.constraints), "wires": r1cs.n_wires, "public": r1cs.n_public,
+                 "bn": compiled.bn, "partition (pub gkr, priv gkr, pub not gkr, priv not gkr)":
+                 [len(p) for p in compiled.partition]}
+        log(f"# pipeline bN={bn}: R1CS {json.dumps(sizes)}")
+        if compiled.bn != bn:
+            raise AssertionError(f"pipeline: compiled bN {compiled.bn}, expected {bn}")
+        outer[-1] = "setup"
+        t0 = time.perf_counter()
+        pk, vk = incircuit_mod.setup(compiled, seed=b"chip-smoke-pipeline")
+        times["setup"] = time.perf_counter() - t0
+        outer[-1] = "groth16.prove"
+        t0 = time.perf_counter()
+        proof, public_values = circ.prove(compiled, pk, vk, seed=b"chip-smoke-prove")
+        times["prove (solve and groth16.prove)"] = time.perf_counter() - t0
+        outer[-1] = "verify"
+        t0 = time.perf_counter()
+        groth16_mod.verify(proof, vk, public_values)
+        times["verify"] = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if proof.initial_randomness != public_values[0] or proof.initial_randomness == 0:
+        raise AssertionError("pipeline: the proof's rho is not the first public value")
+    pipeline_tamper_probes(proof, vk, public_values)
+
+    # the solve trace's GKR inputs, proven again through the plain twins
+    (c, inputs), a = calls["assign"]
+    (_, _, qprime), gkr_proof = calls["GKR prove"]
+    want = proof_to_vec(c, gkr_proof)
+    with plain_twins():
+        plain = proof_to_vec(c, gkr_prover.prove(c, assign(c, inputs), qprime))
+    if plain != want:
+        raise AssertionError("pipeline: the plain twins' GKR proof differs from the kernels'")
+    del a, gkr_proof, calls
+
+    expected = pipeline_expected_launches(bn)
+    require_launched(launches, ["cipher_layer", "tail_rounds"], "the pipeline")
+    same = launches == expected
+    log(f"# launches in the pipeline run: {json.dumps(launches)}")
+    log(f"# expected: {json.dumps(expected)}; {'as expected' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("launches in the pipeline run differ from the expected counts")
+    total = sum(v for k, v in times.items() if ":" not in k and k != "solve")
+    log(f"# pipeline bN={bn} on {card}: {n} hashes, verified, the three tamper probes rejected, the solve's GKR "
+        f"proof equal through the plain twins ({len(want)} elements); {total:.3f} s compile to verify, peak "
+        f"device memory {peak_gb:.4f} GB")
+    log(f"# pipeline stages, s: {json.dumps({k: round(v, 3) for k, v in times.items()})}")
+    return {"bn": bn, "times": times, "sizes": sizes, "launches": launches, "peak_gb": peak_gb}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bn", type=int, default=22, help="log2 of the hashes proven on the main path")
@@ -1549,6 +1730,8 @@ def main() -> int:
     done("9")
     phase_gadget(bn - 4, dev, card)  # 10. 2^18 hashes at the default --bn
     done("10")
+    phase_pipeline(PIPELINE_BN, dev, card)  # 11.
+    done("11")
 
     # each kernel's launches from the run of the path that runs it
     counted_on = {"cipher_coeff_acc": ("phase 7 coeff", paths["coeff"]),

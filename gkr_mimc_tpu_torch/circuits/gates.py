@@ -6,7 +6,8 @@ A gate's parameters are Montgomery (8,) tensors, cached per device. The
 cipher and S-box gates evaluate through the ``cipher_layer`` and ``pow7``
 kernels (``ops.kernels``), which take their plain twins on CPU tensors;
 the degree-1 and degree-2 gates are plain field ops, as the reference
-leaves them to XLA.
+leaves them to XLA. ``gnark_eval`` evaluates a gate inside a constraint
+system (``snark.cs`` or ``snark.r1cs``), for the in-circuit verifier.
 """
 
 from __future__ import annotations
@@ -42,6 +43,18 @@ class Gate:
         """Host oracle on Python ints."""
         raise NotImplementedError
 
+    def gnark_eval(self, cs, xs):
+        """The gate inside a constraint system; xs are its variables."""
+        raise NotImplementedError
+
+
+def _pow7_in_circuit(cs, t):
+    """t^7 as the 4-multiply chain of the reference's cipher gate."""
+    tmp = cs.mul(t, t)  # ^2
+    tmp = cs.mul(t, tmp)  # ^3
+    tmp = cs.mul(tmp, tmp)  # ^6
+    return cs.mul(t, tmp)  # ^7
+
 
 def _bcast(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """An (8,) parameter shaped to broadcast against an (8, *S) batch."""
@@ -65,6 +78,9 @@ class CipherGate(Gate):
     def eval_scalar(self, xs):
         return scalar.pow7(scalar.add(scalar.add(xs[1], self.ark), xs[0]))
 
+    def gnark_eval(self, cs, xs):
+        return _pow7_in_circuit(cs, cs.add(xs[0], xs[1], cs.constant(self.ark)))
+
 
 class IdentityGate(Gate):
     """Copies vL: the explicit multi-instance fan-out gate."""
@@ -77,6 +93,9 @@ class IdentityGate(Gate):
         return xs[0]
 
     def eval_scalar(self, xs):
+        return xs[0]
+
+    def gnark_eval(self, cs, xs):
         return xs[0]
 
 
@@ -92,6 +111,9 @@ class AddGate(Gate):
     def eval_scalar(self, xs):
         return scalar.add(xs[0], xs[1])
 
+    def gnark_eval(self, cs, xs):
+        return cs.add(xs[0], xs[1])
+
 
 class MulGate(Gate):
     """vL * vR."""
@@ -104,6 +126,9 @@ class MulGate(Gate):
 
     def eval_scalar(self, xs):
         return scalar.mul(xs[0], xs[1])
+
+    def gnark_eval(self, cs, xs):
+        return cs.mul(xs[0], xs[1])
 
 
 class SBoxGate(Gate):
@@ -118,6 +143,9 @@ class SBoxGate(Gate):
 
     def eval_scalar(self, xs):
         return scalar.pow7(xs[0])
+
+    def gnark_eval(self, cs, xs):
+        return _pow7_in_circuit(cs, xs[0])
 
 
 class LinearGate(Gate):
@@ -147,6 +175,12 @@ class LinearGate(Gate):
             acc = scalar.add(acc, scalar.mul(c, x))
         return acc
 
+    def gnark_eval(self, cs, xs):
+        acc = cs.constant(self.const)
+        for c, x in zip(self.coeffs, xs):
+            acc = cs.add(acc, cs.mul(cs.constant(c), x))
+        return acc
+
 
 class AffineGate(Gate):
     """c0*vL + c1*vR + c2: the word shift of the GMiMC chain and the ark
@@ -165,3 +199,6 @@ class AffineGate(Gate):
 
     def eval_scalar(self, xs):
         return scalar.add(scalar.add(scalar.mul(self.c0, xs[0]), scalar.mul(self.c1, xs[1])), self.c2)
+
+    def gnark_eval(self, cs, xs):
+        return cs.add(cs.mul(cs.constant(self.c0), xs[0]), cs.mul(cs.constant(self.c1), xs[1]), cs.constant(self.c2))

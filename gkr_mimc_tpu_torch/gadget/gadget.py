@@ -46,6 +46,19 @@ class GadgetProof:
     proof_vec: list[int]
 
 
+# the padding output of the MiMC-91 circuit: Perm_0(0)
+_HASH_OF_ZEROES = mimc_keyed_permutation(0, 0)
+
+
+def zero_output(circuit: Circuit) -> int:
+    """The circuit's output on all-zero inputs: the recorded output of a
+    padding entry. For the 94-layer MiMC-91 circuit it must be
+    ``_HASH_OF_ZEROES``."""
+    out = assign_scalar(circuit, [[0]] * circuit.input_arity())[-1][0]
+    assert len(circuit) != 94 or out == _HASH_OF_ZEROES
+    return out
+
+
 def expand_qprime(rho: int, bn: int) -> list[int]:
     """qPrime = [rho, rho^2, rho^4, ...] by successive squaring."""
     out = []
@@ -84,8 +97,7 @@ class GkrGadget:
         """The circuit's output on all-zero inputs: the padding entries'
         recorded output (for MiMC-91, Perm_0(0))."""
         if self._zero_output is None:
-            a = assign_scalar(self.circuit, [[0]] * self.circuit.input_arity())
-            self._zero_output = a[-1][0]
+            self._zero_output = zero_output(self.circuit)
         return self._zero_output
 
     def update_hasher(self, state: int, msg: int, public: bool = False) -> int:

@@ -71,3 +71,12 @@ def eq_table_scalar(q: list[int], multiplier: int = 1) -> list[int]:
             nxt.extend((scalar.sub(v, rv), rv))
         t = nxt
     return t
+
+
+def evaluate_scalar(table: list[int], coords: list[int]) -> int:
+    """Host-int oracle of ``evaluate``: fold once per coordinate."""
+    t = list(table)
+    for r in coords:
+        mid = len(t) // 2
+        t = [scalar.add(t[i], scalar.mul(r, scalar.sub(t[mid + i], t[i]))) for i in range(mid)]
+    return t[0]

@@ -78,6 +78,8 @@ def test_entry_points_default_to_the_card():
         lambda: testing.to_device_qprimes([[1, 2]]),
         lambda: testing.to_device_claims([3]),
         lambda: gadget.GkrGadget(),  # its .device
+        lambda: gadget.InCircuitGkrGadget(),  # its .device
+        lambda: gadget.GadgetCircuit(lambda cs, g: None),  # its .device
         lambda: gadget.proof_from_vec(c, 1, [0] * gadget.proof_size(c, 1)).qprimes[-1],
     ]
     for call in calls:

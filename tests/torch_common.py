@@ -2,12 +2,14 @@
 lazy random field tables, the JAX layout, canonical values and the golden
 transcripts. Not a test module."""
 
+import gc
 import json
 import random
 from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from gkr_mimc_tpu.fields import fr as jfr
@@ -92,3 +94,30 @@ def mimc_instance(bn):
     block = fr.encode_mont_ints(random_fr_array(1 << bn))
     state = fr.encode_mont_ints(random_fr_array(1 << bn))
     return mimc_circuit(), block, state, ints_to_rows(random_fr_array(bn))
+
+
+def jax_proof(proof):
+    """A port GKRProof in the JAX package's layout (rows (..., 16), numpy),
+    for the JAX package's host readers (``snark.gkr.Proof.assign``)."""
+    from gkr_mimc_tpu.gkr.prover import GKRProof
+    from gkr_mimc_tpu.sumcheck.prover import SumcheckProof
+
+    def rows(t):
+        return None if t is None else np.moveaxis(to_jax_rows(t.movedim(-1, 0)), 0, -1)
+
+    return GKRProof([None if p is None else SumcheckProof(rows(p.coeffs), rows(p.challenges), rows(p.final_claims))
+                     for p in proof.sumcheck_proofs],
+                    [rows(c) for c in proof.claims], [rows(q) for q in proof.qprimes])
+
+
+@pytest.fixture(autouse=True)
+def no_cyclic_gc():
+    """Pause the cyclic garbage collector for a test: constraint traces
+    allocate millions of acyclic tuples, and the collector's passes over
+    them took ~40 % of such a test's time. Autouse in a test file that
+    imports it."""
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
