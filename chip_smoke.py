@@ -87,7 +87,28 @@ nvcc per source, in parallel) and, beside them, the gadget's host runtime
    three tamper probes (KrsGkrPriv, the first public value, Ar) that must
    raise Groth16VerifyError; the solve trace's GKR inputs proven again
    through the plain twins (the same proof vector); the run's launch
-   counts, every kernel, against the expected ones.
+   counts, every kernel, against the expected ones;
+12. (run after phase 7, while phase 5's proof vector is held) the sharded
+   walk (gkr_mimc_tpu_torch.parallel, rounds="coeff") at --bn: (a) world
+   size 1 on nccl in this process, the rank's slab of the inputs from
+   ``shard_mimc_inputs_global``, ``assign_sharded_mimc``,
+   ``prove_gkr_sharded``, verified with the unsharded tables, a tamper
+   probe, phase 5's proof vector, the run's launch counts against the
+   schedule; (b) two ranks started by this script on the one card, gloo
+   (nccl refuses two ranks on one device), each building only its slab of
+   phase 5's inputs: rank 0's proof vector is phase 5's, each rank's
+   times, collectives, launch counts and exit code logged; a rank that
+   fails or outlives its time limit fails the phase with its output;
+13. the checkpointed witness (``models.checkpoint.CheckpointedAssignment``,
+   stride 13) on the default path, each stage under
+   ``utils.profiling.Timer``: (a) at --bn, phase 5's proof vector, its peak
+   memory beside phase 5's; (b) at --bn + 3 (2^25 hashes at the default,
+   whose resident witness would need 101 GB): inputs on the card, witness,
+   prove, verify, a tamper probe, the outputs against the host permutation,
+   hashes/s, peak memory, the launch counts (``mimc_witness`` once per span
+   and again per span but the last); (c) ``profile_trace`` around a
+   bn = 12 walk: the Chrome trace holds kernel events of the port's
+   kernels.
 
 Each path's launch counts are read from its own run, the counts set to 0
 just before it: the kernels of the default path from phase 5,
@@ -97,8 +118,8 @@ its evals run, mul_scalar (which builds single-claim eq tables below
 hashers' S-box) and cipher_layer (the generic witness's cipher layers;
 the MiMC walk runs its tails, gate included, in tail_rounds) from phase
 8, and the six probes from phase 9's run of the scripts' counterparts.
-Phases 10 and 11 log their counts on lines of their own, not in the
-kernels line.
+Phases 10-13 log their counts on lines of their own, not in the kernels
+line.
 
 Prints one JSON line of per-kernel results, then the nvidia-smi line, then
 {"ok": true, "device": {...}} as the last line. Exits non-zero on any
@@ -144,13 +165,17 @@ from gkr_mimc_tpu_torch.hashes import poseidon as poseidon_hash  # noqa: E402
 from gkr_mimc_tpu_torch.hashes.ark import arks_mont  # noqa: E402
 from gkr_mimc_tpu_torch.hashes.mimc import mimc_hash, mimc_hash_device, mimc_keyed_permutation, mimc_update  # noqa: E402
 from gkr_mimc_tpu_torch.models import gmimc, poseidon  # noqa: E402
+from gkr_mimc_tpu_torch.models.checkpoint import CheckpointedAssignment  # noqa: E402
 from gkr_mimc_tpu_torch.models.mimc import assign_fused, mimc_circuit  # noqa: E402
 from gkr_mimc_tpu_torch.ops import build  # noqa: E402
 from gkr_mimc_tpu_torch.ops import kernels as K  # noqa: E402
 from gkr_mimc_tpu_torch.ops import probes as Pr  # noqa: E402
+from gkr_mimc_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from gkr_mimc_tpu_torch.parallel import multihost  # noqa: E402
 from gkr_mimc_tpu_torch.sumcheck import prover as sumcheck_prover  # noqa: E402
 from gkr_mimc_tpu_torch.sumcheck import testing  # noqa: E402
 from gkr_mimc_tpu_torch.utils.common import grouped_inputs, random_fr_array, random_fr_device  # noqa: E402
+from gkr_mimc_tpu_torch.utils import profiling  # noqa: E402
 from gkr_mimc_tpu_torch.utils.convert import ints_to_rows, rows_to_ints  # noqa: E402
 
 MIMC_KAT = 1808205620575546259657963589762746470347087906694759866517376279978241663265
@@ -929,9 +954,8 @@ def expected_launches(bn: int, rounds: str) -> dict:
             "gruen_round_scalar": 0, "tail_rounds": tails, "cipher_layer": 0}
 
 
-def report_launches(launches: dict, bn: int, rounds: str, what: str) -> None:
-    expected = expected_launches(bn, rounds)
-    same = all(launches[k] == v for k, v in expected.items())
+def report_launches(launches: dict, expected: dict, what: str) -> None:
+    same = all(launches.get(k, 0) == v for k, v in expected.items())
     log(f"# launches on {what}: {json.dumps(launches)}")
     log(f"# expected from the round schedule: {json.dumps(expected)}; {'as expected' if same else 'DIFFERENT'}")
     if not same:
@@ -961,9 +985,9 @@ def phase_main(bn: int, dev, card: str) -> dict:
     log(f"# main path bn={bn} on {card}: inputs {times['inputs_s']:.3f} s, witness "
         f"{times['witness_s']:.3f} s, prove {times['prove_s']:.3f} s, verify {times['verify_s']:.3f} s, "
         f"{hps:,.0f} hashes proven/s (witness + prove), peak memory {peak_gb:.2f} GB")
-    report_launches(launches, bn, "gruen", "the main path")
+    report_launches(launches, expected_launches(bn, "gruen"), "the main path")
     main = {"c": c, "block": block, "state": state, "qprime": qprime, "a": a, "times": times,
-            "vec": proof_to_vec(c, proof), "launches": launches}
+            "vec": proof_to_vec(c, proof), "launches": launches, "peak_gb": peak_gb}
     del proof
     return main
 
@@ -999,7 +1023,7 @@ def phase_round_paths_main(bn: int, main: dict, dev, card: str) -> dict:
         log(f"# round path {rounds} bn={bn} on {card}: proof vector equal to the main path's; prove {prove_s:.3f} s, "
             f"verify {verify_s:.3f} s, {hps:,.0f} hashes proven/s (main path's witness + this prove), "
             f"peak memory {peak_gb:.2f} GB")
-        report_launches(launches[rounds], bn, rounds, f"the {rounds} path")
+        report_launches(launches[rounds], expected_launches(bn, rounds), f"the {rounds} path")
     return launches
 
 
@@ -1665,6 +1689,207 @@ def phase_pipeline(bn: int, dev, card: str) -> dict:
     return {"bn": bn, "times": times, "sizes": sizes, "launches": launches, "peak_gb": peak_gb}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the sharded walk
+# ---------------------------------------------------------------------------
+
+SHARDED_RANK_TIMEOUT_S = 420  # a rank of phase 12b, bring-up to exit
+
+
+def expected_sharded_launches(bn: int, world: int, verified: bool) -> dict:
+    """Launches of one rank's sharded "coeff" walk at 2^bn over `world`
+    ranks: every layer's log2(2^bn / world) local rounds on the kernels
+    (round sums, hash, one fold), then, with more than one rank, one
+    tail_rounds launch on the gathered tables; the single-claim eq tables
+    by the contraction from 2^13 local entries; the verifier folds the
+    output and the two input tables once per variable."""
+    local = bn - (world.bit_length() - 1)
+    return {"mimc_witness": 1, "cipher_coeff_acc": 91 * local, "identity_acc": local,
+            "fold": 92 * local + (3 * bn if verified else 0), "mimc_hash": 92 * local + 1,
+            "multi_eq": 92 if local >= sumcheck_prover.MULTI_EQ_MIN_BITS else 1,
+            "tail_rounds": 92 if world > 1 else 0, "gruen_acc": 0, "gruen_round_scalar": 0,
+            "suffix_step": 0, "cipher_layer": 0}
+
+
+def phase_sharded_single(bn: int, want_vec: list, dev, card: str) -> dict:
+    """12a: world size 1 on nccl in this process: the rank's slab of the
+    inputs (the whole table), the witness, the sharded "coeff" walk (every
+    round local, then no gather), verified with the unsharded tables, a
+    tamper probe, phase 5's proof vector."""
+    c = mimc_circuit()
+    multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0, backend="nccl")
+    try:
+        m = multihost.make_global_mesh(backend="nccl")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        block = multihost.shard_mimc_inputs_global(m, 1 << bn)
+        state = block.clone()
+        qprime = ints_to_rows(random_fr_array(bn), dev)
+        sync()
+        t1 = time.perf_counter()
+        a = pmesh.assign_sharded_mimc(block, state)
+        sync()
+        t2 = time.perf_counter()
+        proof = pmesh.prove_gkr_sharded(c, a, qprime, m)
+        sync()
+        t3 = time.perf_counter()
+        tables = [pmesh.unshard_table([t]) for t in (block, state, a[93])]
+        gkr_verifier.verify(c, proof, tables[:2], tables[2], qprime)
+        launches = dict(K.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if proof_to_vec(c, proof) != want_vec:
+            raise AssertionError(f"bn={bn}: the sharded walk at world size 1 differs from phase 5's proof vector")
+        tamper_probe(c, proof, tables[0], tables[1], a, qprime, "sharded world size 1")
+        log(f"# sharded walk, world size 1 ({m.backend}, {m.device}) bn={bn} on {card}: phase 5's proof vector, "
+            f"verified; inputs {t1 - t0:.3f} s, witness {t2 - t1:.3f} s, prove {t3 - t2:.3f} s, "
+            f"{m.counts['all_reduce']} all-reduces, {m.counts['all_gather']} all-gathers, peak memory {peak_gb:.2f} GB")
+        report_launches(launches, expected_sharded_launches(bn, 1, True), "the sharded walk, world size 1")
+        return {"prove_s": t3 - t2, "launches": launches, "collectives": dict(m.counts), "peak_gb": peak_gb}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_sharded_ranks(bn: int, want_vec: list, world: int = 2) -> dict:
+    """12b: `world` ranks started by this script on the one card, gloo
+    (nccl refuses two ranks on one device), each building only its slab of
+    phase 5's inputs; rank 0's proof vector must be phase 5's. A rank that
+    fails or outlives its time limit fails the phase with its output."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        vec_out = os.path.join(tmp, "vec.json")
+        t0 = time.perf_counter()
+        outs = multihost.launch_local(world, ["-m", "gkr_mimc_tpu_torch.parallel.mesh", "--bn", str(bn),
+                                              "--backend", "gloo", "--device", "cuda", "--vec-out", vec_out],
+                                      SHARDED_RANK_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        with open(vec_out) as f:
+            vec = json.load(f)
+    reports = [json.loads(out.strip().splitlines()[-1]) for out in outs]
+    if vec != [str(v) for v in want_vec]:
+        raise AssertionError(f"bn={bn}: rank 0 of the {world}-rank sharded walk differs from phase 5's proof vector")
+    if len({r["vec_sha256"] for r in reports}) != 1:
+        raise AssertionError("the ranks' proof vectors differ")
+    for r in reports:
+        log(f"# sharded walk rank {r['rank']} of {r['world']} ({r['backend']}, {r['device']}) bn={bn}: exit 0, "
+            f"bring-up {r['bring_up_s']:.3f} s, inputs {r['inputs_s']:.3f} s, witness {r['witness_s']:.3f} s, "
+            f"prove {r['prove_s'][0]:.3f} s, {r['collectives']['all_reduce']} all-reduces, "
+            f"{r['collectives']['all_gather']} all-gathers, peak memory {r.get('peak_gb', 0.0):.2f} GB")
+        report_launches(r["launches"], expected_sharded_launches(bn, world, False), f"sharded rank {r['rank']}")
+    log(f"# sharded walk, world size {world} on one card: rank 0's proof vector is phase 5's; {wall:.1f} s from "
+        f"start to the last rank's exit")
+    return {"reports": reports, "wall_s": wall}
+
+
+def phase_sharded(bn: int, want_vec: list, dev, card: str) -> dict:
+    """Phase 12: the sharded walk at world size 1 in this process (12a),
+    then 2 ranks on the one card (12b)."""
+    single = phase_sharded_single(bn, want_vec, dev, card)
+    return {"single": single, "ranks": phase_sharded_ranks(bn, want_vec)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the checkpointed witness and the profiler
+# ---------------------------------------------------------------------------
+
+RESIDENT_TABLES = 94  # the MiMC witness, every layer's table
+
+
+def checkpointed_walk(bn: int, dev, card: str, what: str) -> tuple:
+    """Inputs on the card, the checkpointed witness (stride 13), the
+    default walk, each stage under the ported Timer; returns (circuit,
+    inputs, witness, proof, seconds by stage, peak GB)."""
+    c = mimc_circuit()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with profiling.Timer(f"# {what}: inputs", out=sys.stdout) as t_in:
+        block, state, qprime = t_in.sync_on(walk_inputs(bn, dev))
+    with profiling.Timer(f"# {what}: checkpointed witness", out=sys.stdout) as t_wit:
+        ck = CheckpointedAssignment(block, state)
+        t_wit.sync_on(ck.output)
+    with profiling.Timer(f"# {what}: prove", out=sys.stdout) as t_prove:
+        proof = gkr_prover.prove(c, ck, qprime)
+        t_prove.sync_on([p.coeffs for p in proof.sumcheck_proofs if p is not None])
+    times = {"inputs_s": t_in.elapsed_ms / 1e3, "witness_s": t_wit.elapsed_ms / 1e3, "prove_s": t_prove.elapsed_ms / 1e3}
+    return c, block, state, qprime, ck, proof, times, torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_checkpoint(bn: int, want_vec: list, main_peak_gb: float, dev, card: str) -> dict:
+    """Phase 13: (a) the checkpointed witness at --bn gives phase 5's proof
+    vector; (b) 2^(bn+3) hashes, more than a resident witness fits on the
+    card, proven, verified, a tamper probe, the outputs at sampled
+    instances; (c) profile_trace around a bn = 12 walk."""
+    c, block, state, qprime, ck, proof, times, peak_a = checkpointed_walk(bn, dev, card, f"13a bn={bn}")
+    if proof_to_vec(c, proof) != want_vec:
+        raise AssertionError(f"bn={bn}: the checkpointed walk differs from phase 5's proof vector")
+    n_spans = ck.n_spans
+    log(f"# checkpointed walk bn={bn} on {card}: phase 5's proof vector; witness {times['witness_s']:.3f} s, prove "
+        f"{times['prove_s']:.3f} s, peak memory {peak_a:.2f} GB (phase 5, resident: {main_peak_gb:.2f} GB)")
+    del c, block, state, qprime, ck, proof
+
+    big = bn + 3
+    resident_gb = RESIDENT_TABLES * (1 << big) * FE / 1e9
+    c, block, state, qprime, ck, proof, times_b, peak_b = checkpointed_walk(big, dev, card, f"13b bn={big}")
+    launches = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    gkr_verifier.verify(c, proof, [block, state], ck[93], qprime)
+    sync()
+    verify_s = time.perf_counter() - t0
+    check_outputs(ck[93], 0, 0, 1 << big, f"checkpointed bn={big}")
+    tamper_probe(c, proof, block, state, ck, qprime, f"checkpointed bn={big}")
+    # every span made twice (the forward pass, the walk's read), the last once
+    report_launches(launches, dict(expected_launches(big, "gruen"), mimc_witness=2 * n_spans - 1),
+                    f"the checkpointed walk at bn={big}")
+    hps = (1 << big) / (times_b["witness_s"] + times_b["prove_s"])
+    log(f"# checkpointed walk bn={big} ({1 << big:,} hashes) on {card}: verified, tamper rejected, outputs equal "
+        f"the host permutation; inputs {times_b['inputs_s']:.3f} s, witness {times_b['witness_s']:.3f} s, prove "
+        f"{times_b['prove_s']:.3f} s, verify {verify_s:.3f} s, {hps:,.0f} hashes proven/s (witness + prove), "
+        f"peak memory {peak_b:.2f} GB; a resident witness at this bn needs {RESIDENT_TABLES} x 2^{big} x {FE} B = "
+        f"{resident_gb:.1f} GB, more than the card's 80 GB, so no resident run compares")
+    del c, block, state, qprime, ck, proof
+
+    trace = phase_profile_trace(12, dev)
+    return {"a": {**times, "peak_gb": peak_a}, "b": {**times_b, "verify_s": verify_s, "peak_gb": peak_b,
+                                                     "hps": hps, "launches": launches}, "c": trace}
+
+
+def port_kernel_names() -> set:
+    """The __global__ functions of the port's CUDA sources."""
+    pat = re.compile(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)\s+)?(?:void\s+)?(\w+)\s*\(")
+    return {m.group(1) for src in build.sources() for m in pat.finditer(src.read_text())}
+
+
+def phase_profile_trace(bn: int, dev) -> dict:
+    """13c: ``profile_trace`` around a bn walk (inputs, witness, prove);
+    the Chrome trace must hold kernel events of the port's kernels."""
+    c = mimc_circuit()
+    K.reset_launch_counts()
+    with profiling.profile_trace("chip_smoke_13c", root=str(ROOT / "profiling")) as path:
+        block, state, qprime = walk_inputs(bn, dev)
+        gkr_prover.prove(c, assign_fused(block, state), qprime)
+    launched = sum(K.LAUNCHES.values())
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = port_kernel_names()
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    ours = {}
+    for k in kernels:
+        for name in names:
+            if re.search(rf"\b{name}\b", k):
+                ours[name] = ours.get(name, 0) + 1
+    size = os.path.getsize(path)
+    log(f"# profile_trace bn={bn}: {path} ({size:,} B), {len(events):,} events, {len(kernels):,} kernel events, "
+        f"{sum(ours.values()):,} of the port's kernels ({launched:,} launches counted): {json.dumps(ours)}")
+    if not ours:
+        raise AssertionError("the trace holds no kernel event of the port's kernels")
+    return {"bytes": size, "events": len(events), "kernel_events": len(kernels), "port_kernels": ours}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bn", type=int, default=22, help="log2 of the hashes proven on the main path")
@@ -1719,8 +1944,14 @@ def main() -> int:
     done("5")
     paths = phase_round_paths_main(bn, main_run, dev, card)  # 7., while phase 5's witness is resident
     done("7")
-    launches = main_run["launches"]
+    launches, main_vec = main_run["launches"], main_run["vec"]
+    main_peak_gb = main_run["peak_gb"]
     del main_run
+    phase_sharded(bn, main_vec, dev, card)  # 12., while phase 5's proof vector is held
+    done("12")
+    phase_checkpoint(bn, main_vec, main_peak_gb, dev, card)  # 13.
+    done("13")
+    del main_vec
     phase_grouped(bn - 2, GROUPS, dev, card)  # 6.
     done("6")
     # 8. Poseidon's 397 layers at bn - 4: their tail rounds cost the same at every bn

@@ -144,11 +144,32 @@ def _cond_sub(s: torch.Tensor, c_limbs) -> torch.Tensor:
     return torch.where(d[L - 1] >= 0, d, s)
 
 
+def widen(a: torch.Tensor) -> torch.Tensor:
+    """Canonical (8, *S) values -> their 32-bit limbs as int64 columns: the
+    form a sum over processes adds exactly (a column of D summands stays
+    below D * 2**32)."""
+    return _u64(a)
+
+
+def from_limb_sums(s: torch.Tensor, terms: int) -> torch.Tensor:
+    """int64 limb columns holding the exact sum of ``terms`` canonical
+    values -> the sum mod p, canonical (8, *S) int32. The carried sum is
+    below terms * p; one conditional subtraction of p * 2**k for each k
+    from the largest with 2**k < terms down to 0 brings it below p."""
+    s = _carry32(s.clone())
+    for k in reversed(range((terms - 1).bit_length())):
+        c = P << k
+        s = _cond_sub(s, [(c >> (32 * i)) & _M32 for i in range(L - 1)] + [c >> (32 * (L - 1))])
+    return _to_i32(s)
+
+
 def _host_ints(f, a: torch.Tensor, b: torch.Tensor):
     """f elementwise on the held integers, for small CPU batches (the
     torch path costs ~150 tiny ops per multiply); None otherwise."""
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    if a.device.type != "cpu" or int(np.prod(shape[1:], dtype=np.int64)) > SMALL:
+    if a.device.type != "cpu":
+        return None
+    shape = a.shape if a.shape == b.shape else torch.broadcast_shapes(a.shape, b.shape)
+    if int(np.prod(shape[1:], dtype=np.int64)) > SMALL:
         return None
     xs, ys = limb_values(a.expand(shape)), limb_values(b.expand(shape))
     return _limb_tensor([f(x, y) for x, y in zip(xs, ys)]).reshape(shape)
@@ -247,7 +268,11 @@ def square(a: torch.Tensor) -> torch.Tensor:
 def mul_small(a: torch.Tensor, c: int) -> torch.Tensor:
     """c * a mod 2p for a small integer c >= 1, by doubling and adding from
     the top bit of c (csrc/fr.cuh mul_small): each add is exact mod 2p, so
-    the bits do not depend on the chain."""
+    the bits do not depend on the chain (small CPU batches take c * a mod 2p
+    on host ints, the same bits)."""
+    out = _host_ints(lambda x, _: x * c % (2 * P), a, a)
+    if out is not None:
+        return out
     r = a
     for bit in bin(c)[3:]:
         r = add(r, r)

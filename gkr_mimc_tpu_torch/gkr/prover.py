@@ -49,6 +49,16 @@ def prove(circuit: Circuit, assignment: list, qprime: torch.Tensor,
     Grouped (G independent instances in one walk; the transcript hashes of
     all lanes run in lockstep): assignment tables (8, G, N), qprime
     (bn, G, 8) with one evaluation point per lane."""
+    return walk(circuit, assignment, qprime,
+                lambda xs, qprimes, claims, gate: sumcheck_prover.prove(xs, qprimes, claims, gate, tail_bits,
+                                                                        rounds=rounds))
+
+
+def walk(circuit: Circuit, assignment, qprime: torch.Tensor, sumcheck) -> GKRProof:
+    """The layer walk with ``sumcheck(xs, qprimes, claims, gate)`` proving
+    each layer: ``assignment[j]`` is read once per consuming layer, in
+    descending layer order (the sharded walk passes its local tables and
+    its sharded sumcheck)."""
     nlayers = len(circuit)
     claim_store = [[None] * len(l.out) for l in circuit]
     qprime_store = [[None] * len(l.out) for l in circuit]
@@ -71,7 +81,7 @@ def prove(circuit: Circuit, assignment: list, qprime: torch.Tensor,
             claims_out[layer] = claim_rows
             claims = claim_rows.movedim(-1, 0).contiguous()  # (8, J[, G])
         xs = [assignment[j] for j in circuit[layer].in_]
-        scp = sumcheck_prover.prove(xs, qprimes, claims, circuit[layer].gate, tail_bits, rounds=rounds)
+        scp = sumcheck(xs, qprimes, claims, circuit[layer].gate)
         proofs[layer] = scp
         for i, inp in enumerate(circuit[layer].in_):
             slot = circuit.out_slot(inp, layer)

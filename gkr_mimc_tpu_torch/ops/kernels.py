@@ -697,16 +697,19 @@ def gruen_round_scalar_plain(qc, alpha, beta, ck, qk):
 TAIL_MAX_BITS = 10  # tables of at most 2**TAIL_MAX_BITS entries fit the tail kernel's shared memory
 
 
-def generic_round(evaluate, n_evals: int, eq: torch.Tensor, xs: list, challenge):
+def generic_round(evaluate, n_evals: int, eq: torch.Tensor, xs: list, challenge, combine=None):
     """One evaluation-form sumcheck round on (8, G, n) tables in plain torch
     field ops: the tables at t = 0..n_evals-1, the gate ``evaluate(xs_t)``,
-    the sums of eq_t * gate, interpolation, the challenge
-    ``challenge(coeffs)`` and the folds bot + r (top - bot). Returns (eq,
-    xs, coeffs (8, n_evals, G), r (8, G))."""
+    the sums of eq_t * gate (passed through ``combine`` if given: the
+    sharded prover adds every shard's sums there), interpolation, the
+    challenge ``challenge(coeffs)`` and the folds bot + r (top - bot).
+    Returns (eq, xs, coeffs (8, n_evals, G), r (8, G))."""
     tables = torch.stack([eq] + list(xs), dim=1)  # (8, 1 + k, G, n)
     at_t = stack_t(tables, n_evals)
     g = evaluate(list(at_t[:, 1:].unbind(1)))
     evals = fr.reduce_sum(fr.mul(at_t[:, 0], g), 2)  # (8, n_evals, G)
+    if combine is not None:
+        evals = combine(evals)
     coeffs = lagrange.interpolate_on_range_device(evals)
     r = challenge(coeffs)
     half = tables.shape[-1] // 2

@@ -52,6 +52,21 @@ def eq_table_grouped(qprime: torch.Tensor, multiplier=None) -> torch.Tensor:
     return t
 
 
+def eq_prefix(qprime_bits: torch.Tensor, chunk_id: int, multiplier=None) -> torch.Tensor:
+    """The factor of eq over k variables at the bits of ``chunk_id``:
+    mult * prod_i (q_i if bit else 1 - q_i), qprime_bits[0] paired with the
+    most significant of chunk_id's k bits (the reference's
+    gkr_mimc_tpu/poly/multilin.py:101-118): qprime_bits (k, 8) rows ->
+    (8,). A shard seeds its local eq table with it."""
+    one = fr.one((), qprime_bits.device)
+    r = one if multiplier is None else multiplier
+    k = qprime_bits.shape[0]
+    for pos in range(k):
+        q = qprime_bits[pos]
+        r = fr.mul(r, q if (chunk_id >> (k - 1 - pos)) & 1 else fr.sub(one, q))
+    return r
+
+
 def eq_eval_scalar(q: list[int], h: list[int]) -> int:
     """EvalEq(q, h) = prod_i (1 + 2 q_i h_i - q_i - h_i) on Python ints."""
     res = 1

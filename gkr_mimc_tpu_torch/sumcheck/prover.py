@@ -121,7 +121,15 @@ def _make_eq(qprimes: torch.Tensor, claims: torch.Tensor, lo_bits: int) -> torch
     j, bn = qprimes.shape[0], qprimes.shape[1]
     if j == 1 and bn < MULTI_EQ_MIN_BITS:
         return multilin.eq_table(qprimes[0])
-    ms = _rlc_multipliers(claims.unsqueeze(-1))[..., 0]
+    return eq_contraction(qprimes, _rlc_multipliers(claims.unsqueeze(-1))[..., 0], lo_bits)
+
+
+def eq_contraction(qprimes: torch.Tensor, ms: torch.Tensor, lo_bits: int) -> torch.Tensor:
+    """sum_j ms_j eq(q_j, x) as one ``multi_eq`` contraction of per-claim hi
+    tables (the multipliers folded in) with per-claim lo tables over the
+    last min(bn, lo_bits) variables: qprimes (J, bn, 8), ms (8, J) ->
+    (8, 2**bn)."""
+    bn = qprimes.shape[1]
     hi_bits = bn - min(bn, lo_bits)
     hi = multilin.eq_table_grouped(qprimes[:, :hi_bits].transpose(0, 1), multiplier=ms)
     lo = multilin.eq_table_grouped(qprimes[:, hi_bits:].transpose(0, 1))

@@ -41,20 +41,31 @@ def random_fr_array(size: int) -> list[int]:
 
 def random_fr_device(size: int, offset: int = 0, device="cuda") -> torch.Tensor:
     """The same generator computed on the device: (8, size) standard-form
-    limbs (not Montgomery), on the card unless ``device`` says otherwise.
-    i*i mod 2**64 is built from 16-bit halves in int64 (no overflow), then
-    the XOR constant is applied per 32-bit limb. Requires
+    limbs (not Montgomery) of elements offset .. offset + size - 1, on the
+    card unless ``device`` says otherwise. Requires
     offset + size <= 2**32."""
     if offset < 0 or offset + size > 1 << 32:
         raise ValueError(f"index range [{offset}, {offset + size}) leaves [0, 2**32)")
-    i = torch.arange(offset, offset + size, dtype=torch.int64, device=device)
-    h, lo = i >> 16, i & 0xFFFF
+    return random_fr_at(torch.arange(offset, offset + size, dtype=torch.int64, device=device))
+
+
+def random_fr_at(idx: torch.Tensor) -> torch.Tensor:
+    """The generator at the given indices (the reference's
+    ``random_fr_array_np``, gkr_mimc_tpu/utils/common.py:47, at any index
+    set): idx (k,) int64 in [0, 2**32) -> (8, k) standard-form limbs on
+    idx's device (the caller keeps the indices in range: checking them
+    would wait for the device). A shard builds its slab from its own
+    indices rank + D * j. i*i mod 2**64 is built from 16-bit halves in int64 (no
+    overflow), then the XOR constant is applied per 32-bit limb."""
+    if idx.dim() != 1 or idx.dtype != torch.int64:
+        raise ValueError(f"random_fr_at: expected a 1-D int64 index tensor, got {idx.dtype} {tuple(idx.shape)}")
+    h, lo = idx >> 16, idx & 0xFFFF
     p0, pm, p2 = lo * lo, h * lo, h * h  # i*i = p0 + 2 pm 2**16 + p2 2**32
     c0 = p0 + ((2 * pm) & 0xFFFF) * (1 << 16)  # < 2**33
     c1 = ((2 * pm) >> 16) + p2 + (c0 >> 32)
     limb0 = (c0 & 0xFFFFFFFF) ^ (_RAND_XOR & 0xFFFFFFFF)
     limb1 = (c1 & 0xFFFFFFFF) ^ (_RAND_XOR >> 32)
-    out = torch.zeros((L, size), dtype=torch.int64, device=device)
+    out = torch.zeros((L, idx.numel()), dtype=torch.int64, device=idx.device)
     out[0], out[1] = limb0, limb1
     return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
 

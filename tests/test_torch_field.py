@@ -67,6 +67,7 @@ def test_entry_points_default_to_the_card():
     call raises (no fallback to the CPU)."""
     from gkr_mimc_tpu_torch import gadget
     from gkr_mimc_tpu_torch.models.mimc import mimc_circuit
+    from gkr_mimc_tpu_torch.parallel import mesh, multihost
     from gkr_mimc_tpu_torch.sumcheck import testing
 
     c = mimc_circuit()
@@ -81,6 +82,9 @@ def test_entry_points_default_to_the_card():
         lambda: gadget.InCircuitGkrGadget(),  # its .device
         lambda: gadget.GadgetCircuit(lambda cs, g: None),  # its .device
         lambda: gadget.proof_from_vec(c, 1, [0] * gadget.proof_size(c, 1)).qprimes[-1],
+        lambda: multihost.make_global_mesh(),  # its .device
+        lambda: mesh.make_mesh(),  # its .device
+        lambda: multihost.shard_mimc_inputs_global(multihost.make_global_mesh(), 4),
     ]
     for call in calls:
         if torch.cuda.is_available():
@@ -88,10 +92,12 @@ def test_entry_points_default_to_the_card():
         else:
             with pytest.raises((AssertionError, RuntimeError)):
                 call()
-    if not torch.cuda.is_available():  # verify_gadget returns nothing to look at
+    if not torch.cuda.is_available():  # verify_gadget and dryrun return nothing to look at
         with pytest.raises((AssertionError, RuntimeError)):
             gadget.verify_gadget(c, gadget.GadgetSetup([], [], 1, 1), gadget.GadgetProof(0, 0, (0, 1, 0), []),
                                  gadget.IoStore())
+        with pytest.raises(RuntimeError):
+            mesh.dryrun(2)
 
 
 def test_package_imports_without_jax():
