@@ -27,13 +27,15 @@ nvcc per source, in parallel) and, beside them, the gadget's host runtime
    (log2(m) hashes of their coefficients);
 3. golden transcripts: MimcHash([12]) and tests/golden/transcripts.json,
    with tail_bits 8 and 1;
-4. a full GKR walk at bn = 14 and a grouped walk of G = 2 instances at
-   bn = 12, each through the kernels and again through the plain twins on
-   the same CUDA tensors: identical proof vectors; each grouped lane
+4. a full GKR walk at bn = 13 (its single-claim eq tables, 2^13 entries,
+   take multi_eq's hi/lo contraction) and a grouped walk of G = 2
+   instances at bn = 10, each through the kernels and again through the
+   plain twins on the same CUDA tensors: identical proof vectors; each
+   grouped lane
    equals the single-instance walk of its inputs. Then the two other round
    paths, rounds="coeff" and rounds="evals", at tail_bits 2: a walk at
-   bn = 12 (its eq tables built through mul_scalar) equal to the default
-   "gruen" walk, and G = 2 lanes at bn = 10 each equal to the gruen walk
+   bn = 10 (its eq tables built through mul_scalar) equal to the default
+   "gruen" walk, and G = 2 lanes at bn = 8 each equal to the gruen walk
    of its inputs;
 5. the main path at --bn (default 22, the north-star size): inputs
    generated on the card, witness, GKR proof, verification, a tamper probe,
@@ -46,8 +48,8 @@ nvcc per source, in parallel) and, beside them, the gadget's host runtime
    the main path): inputs on the card, witness, grouped proof,
    verify_grouped, a tamper probe in lane 2 that must be named, and the
    launch counts of that run;
-8. the other circuits: GMiMC T2 (96 layers) at bn = --bn and Poseidon T2
-   (RF 8, RP 82: 397 layers) at bn = --bn - 4, each through the generic
+8. the other circuits: GMiMC T2 (96 layers) at bn = --bn - 2 and Poseidon
+   T2 (RF 8, RP 82: 397 layers) at bn = --bn - 8, each through the generic
    witness (circuits.assign), proof, verification, a tamper probe and its
    output table against the host permutation at 257 sampled instances,
    timed per layer kind; a GMiMC T2 and a Poseidon (2, 2, 3) walk at
@@ -61,10 +63,13 @@ nvcc per source, in parallel) and, beside them, the gadget's host runtime
    op_chain to 1e-5 relative), then the five scripts' counterparts at
    their default shapes through the probes' entry points, each timed case
    held to its plain version before it is timed with CUDA events: 32-bit
-   op rates and the tensor-core dot (beside torch._int_mm(m, x) * reps),
+   op rates and the tensor-core dot on wgmma (beside torch._int_mm(m, x)
+   * reps, the same function, and torch._int_mm at equal work, cuBLAS's
+   int8 rate), imma_dot at IMMA_MAX_REPS on the extreme inputs,
    check_mxu_mul's field check of both multiplies, the Montgomery-product
-   split, the S-box chain latency in both layouts, the partial-evals
-   multiply A/B;
+   split, the S-box chain latency in both layouts (each at the lazy edges
+   and at rounds and 2 rounds first) beside the transcript hash chain's,
+   the partial-evals multiply A/B;
 10. the standalone gadget at bn = --bn - 4 (2^18 hashes at the default,
    the low end of the reference's gadget benchmark range): the native host
    runtime built, 2^bn - 3 updates through ``update_hasher_batch`` (the
@@ -114,7 +119,7 @@ Each path's launch counts are read from its own run, the counts set to 0
 just before it: the kernels of the default path from phase 5,
 cipher_coeff_acc from phase 7's coeff run, the partial evaluations from
 its evals run, mul_scalar (which builds single-claim eq tables below
-2^13 entries only) from phase 4's coeff walk at bn = 12, pow7 (the
+2^13 entries only) from phase 4's coeff walk at bn = 10, pow7 (the
 hashers' S-box) and cipher_layer (the generic witness's cipher layers;
 the MiMC walk runs its tails, gate included, in tail_rounds) from phase
 8, and the six probes from phase 9's run of the scripts' counterparts.
@@ -224,7 +229,7 @@ def card_line() -> str:
 PASS1_WATCH = ("8deferred10acc_kernel", "8deferred19identity_acc_kernel")
 REGISTER_WATCH = PASS1_WATCH + ("8deferred19gruen_finish_kernel", "8deferred19coeff_finish_kernel",
                                 "8deferred22identity_finish_kernel", "gruen_round_kernel", "mimc_hash_kernel",
-                                "tail_kernel")
+                                "tail_kernel", "imma_dot_kernel", "sbox_col_kernel", "sbox_row_kernel")
 
 
 def ptxas_usage(text: str) -> dict:
@@ -252,19 +257,21 @@ def log_sass() -> None:
     """The watched kernels as ptxas compiled them (cuobjdump -sass of the
     built library): instructions in all and in the largest loop (pass 1's
     tile loop; the hash chain's round loop, one S-box), and the tensor-core
-    (IMMA) and shuffle instructions of the loop. Fails if an instantiation
-    of a deferred pass 1 has no IMMA in its tile loop."""
-    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(build.library_path())], capture_output=True, text=True,
-                          check=True).stdout
-    for fn, (loop, whole) in Pr.sass_loops(text).items():
+    (IMMA, and GMMA for warpgroup wgmma) and shuffle instructions of the
+    loop. Fails if an instantiation of a deferred pass 1 has no IMMA in its
+    tile loop, or the imma_dot probe no GMMA in its loop."""
+    for fn, (loop, whole) in Pr.sass_loops_of_library().items():
         if not any(key in fn for key in REGISTER_WATCH):
             continue
         imma = sum(op.startswith("IMMA") for op in loop)
+        gmma = sum("GMMA" in op for op in loop)
         shfl = sum(op.startswith("SHFL") for op in loop)
-        log(f"# sass {fn}: {len(whole)} instructions, largest loop {len(loop)} ({imma} IMMA, {shfl} SHFL)")
+        log(f"# sass {fn}: {len(whole)} instructions, largest loop {len(loop)} ({imma} IMMA, {gmma} GMMA, "
+            f"{shfl} SHFL)")
         if any(key in fn for key in PASS1_WATCH) and imma == 0:
             raise AssertionError(f"{fn}: no IMMA in its tile loop")
+        if "imma_dot_kernel" in fn and gmma == 0:
+            raise AssertionError(f"{fn}: no warpgroup GMMA in its loop")
 
 
 def sync() -> None:
@@ -1325,6 +1332,34 @@ def probe_bound(name: str, args) -> tuple[float, str]:
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
 
 
+PARENT_IMMA_MS = 0.4461  # the first port's mma.sync imma_dot at the timed shape (PERF.md's kernel table)
+PARENT_SBOX_NS = {"col": 2405, "row": 2407}  # the first port's CIOS chains, ns an S-box (PERF.md's kernel table)
+
+
+def log_redesigned_probes(runs: dict, rows: dict) -> None:
+    """The two redesigned probes beside their yardsticks: imma_dot (wgmma)
+    against its bound, the first port's mma.sync time and torch._int_mm at
+    equal work; each sbox_chain layout's dependent product beside the
+    first port's chain and the transcript hash chain's (csrc/mimc.cuh)."""
+    mo, row = runs["micro_ops"], rows["imma_dot"]
+    ms, (m, x, reps, _) = mo["imma_dot"]
+    eq_ms, (a, b) = mo["int_mm_equal"]
+    macs, eq_macs = reps * 64 * 32 * x.shape[1], a.shape[0] * a.shape[1] * b.shape[1]
+    log(f"# redesigned imma_dot (wgmma m64n256k32): {ms:.4f} ms, {macs / ms / 1e9:.1f} T MAC/s, "
+        f"{row['bound_ms'] / ms:.1%} of its bound {row['bound_ms']:.4f} ms; parent (mma.sync) {PARENT_IMMA_MS} ms "
+        f"(PERF.md); torch._int_mm at equal work {eq_ms:.4f} ms, {eq_macs / eq_ms / 1e9:.1f} T MAC/s: the kernel at "
+        f"{(macs / ms) / (eq_macs / eq_ms):.3f}x cuBLAS's int8 rate")
+    rm = runs["micro_row_mul"]
+    hash_ns = rm["mimc_hash"][0] * 1e6 / Pr.MIMC_SBOXES_PER_HASH
+    for layout in Pr.LAYOUTS:
+        r = rm[("numbers", layout)]
+        log(f"# redesigned sbox_chain {layout} (FP64 product, {r['depth']} deep): {r['slope_us_a_sbox'] * 1e3:.1f} ns "
+            f"an S-box, {r['ns_a_dependent_product']:.1f} ns ({r['cycles_a_dependent_product']:.0f} cycles) a "
+            f"dependent product, {r['sass_a_product']} SASS a product; parent (CIOS) {PARENT_SBOX_NS[layout]} ns an S-box "
+            f"(PERF.md); mimc_hash {hash_ns:.1f} ns an S-box, {hash_ns / 3:.1f} ns a dependent product "
+            f"({r['x_mimc_hash_sbox']:.3f}x its S-box)")
+
+
 def phase_probes(dev) -> dict:
     """Phase 9. Returns per probe its row of the kernels line: launches in
     the run of the scripts' counterparts (counts set to 0 just before it)
@@ -1336,9 +1371,14 @@ def phase_probes(dev) -> dict:
             Pr.check(name, getattr(Pr, name)(*args), Pr.PLAIN[name](*args))
         log(f"# probe {name}: equal to its plain version at {len(cases)} small cases")
     Pr.reset_launch_counts()
-    runs = {"micro_ops": Pr.run_micro_ops(), "check_mxu_mul": Pr.run_check_mxu_mul(),
-            "micro_mul_split": Pr.run_micro_mul_split(), "micro_row_mul": Pr.run_micro_row_mul(),
-            "micro_pe_mxu": Pr.run_micro_pe_mxu()}
+    runs, seconds = {}, {}
+    for script, run in (("micro_ops", Pr.run_micro_ops), ("check_mxu_mul", Pr.run_check_mxu_mul),
+                        ("micro_mul_split", Pr.run_micro_mul_split), ("micro_row_mul", Pr.run_micro_row_mul),
+                        ("micro_pe_mxu", Pr.run_micro_pe_mxu)):
+        t0 = time.perf_counter()
+        runs[script] = run()
+        seconds[script] = round(time.perf_counter() - t0, 2)
+    log(f"# phase 9 seconds by script: {json.dumps(seconds)}")
     launches = dict(Pr.PROBE_LAUNCHES)
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
@@ -1363,6 +1403,7 @@ def phase_probes(dev) -> dict:
         log(f"# probe {name}: {ms:.4f} ms kernel vs {plain_ms:.2f} ms plain, bound {bound_ms:.6f} ms "
             f"({bound_by}), max err {Pr.MAX_ERR[name]}{lib}")
         del got, want
+    log_redesigned_probes(runs, rows)
     torch.cuda.empty_cache()
     return rows
 
@@ -1936,9 +1977,12 @@ def main() -> int:
     done("2")
     phase_golden(dev)  # 3.
     done("3")
-    phase_cross_check(min(14, bn), dev)  # 4.
-    phase_grouped_cross_check(min(12, bn - 2), 2, dev)
-    small = phase_round_paths_small(min(12, bn), min(10, bn - 2), 2, dev)
+    # 4. and 8. are cut in depth so that the script ends inside its limit on
+    # a slow host: they move with the host's speed, the card's phases do not
+    # (PERF.md, section 4)
+    phase_cross_check(min(13, bn), dev)  # 4.
+    phase_grouped_cross_check(min(10, bn - 2), 2, dev)
+    small = phase_round_paths_small(min(10, bn), min(8, bn - 2), 2, dev)
     done("4")
     main_run = phase_main(bn, dev, card)  # 5.
     done("5")
@@ -1954,8 +1998,8 @@ def main() -> int:
     del main_vec
     phase_grouped(bn - 2, GROUPS, dev, card)  # 6.
     done("6")
-    # 8. Poseidon's 397 layers at bn - 4: their tail rounds cost the same at every bn
-    circuits = phase_circuits(bn, bn - 4, dev, card)
+    # 8. Poseidon's 397 layers at bn - 8: their tail rounds cost the same at every bn
+    circuits = phase_circuits(bn - 2, bn - 8, dev, card)
     done("8")
     probes = phase_probes(dev)  # 9.
     done("9")
@@ -1968,7 +2012,7 @@ def main() -> int:
     counted_on = {"cipher_coeff_acc": ("phase 7 coeff", paths["coeff"]),
                   "cipher_partial_evals": ("phase 7 evals", paths["evals"]),
                   "identity_partial_evals": ("phase 7 evals", paths["evals"]),
-                  "mul_scalar": (f"phase 4 coeff, bn={min(12, bn)}", small["coeff"]),
+                  "mul_scalar": (f"phase 4 coeff, bn={min(10, bn)}", small["coeff"]),
                   "pow7": ("phase 8", circuits["launches"]),
                   "cipher_layer": ("phase 8", circuits["launches"])}
     kernels = []

@@ -45,11 +45,13 @@ integer ops), 128 f32 FMAs, 1,979 T int8 tensor-core operations a second,
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import math
 import re
 import subprocess
 import sys
+from functools import lru_cache
 from pathlib import Path
 
 import numpy as np
@@ -105,9 +107,14 @@ OP_BODIES = {
 CHAIN_VARIANTS = {"mul": 264, "mul_ptx": 264, "square": 208, "school": 128, "redc": 136, "mul_fips": 264}
 FIELD_VARIANTS = ("mul", "mul_ptx", "mul_fips")
 LAYOUTS = ("col", "row")
+# sbox_chain: dependent products an S-box, by layout, which are also the
+# products a thread runs an S-box ("row" runs x^3 and x^4 on two threads)
+SBOX_DEPTH = {"col": 4, "row": 3}
 PE_THREADS = (128, 256, 512)
 SBOX_ROUNDS = 91  # micro_row_mul.py: one permutation's worth of S-boxes
-IMMA_MAX_REPS = 4096  # 4096 * 32 * 128 * 128 = 2**31: the s32 sums stay exact
+IMMA_MAX_REPS = 4095  # |sum| <= reps * 32 * 128 * 128 = reps * 2^19 < 2^31: the s32 sums stay exact
+IMMA_THREADS = (128, 256)  # one or two warpgroups a block
+IMMA_EQUAL_WORK = (4096, 8192, 8192)  # torch._int_mm (M, K) x (K, N): 2^38 MACs, the probe's at its default shape
 LAZY_EDGES = [0, 1, 2, P - 2, P - 1, P, P + 1, 2 * P - 2, 2 * P - 1, (1 << 255) % P, 0xFFFFFFFF, 1 << 64]
 
 _M16, _M32 = 0xFFFF, 0xFFFFFFFF
@@ -240,13 +247,19 @@ def op_chain_plain(x, y, body, reps, threads=256):
 
 def imma_dot(m: torch.Tensor, x: torch.Tensor, reps: int, threads: int = 128) -> torch.Tensor:
     """reps * (m @ x): m (64, 32) int8, x (32, n) int8 with n a multiple of
-    8 -> (64, n) int32, by ``reps`` rounds of mma.sync accumulation."""
+    8 -> (64, n) int32, by ``reps`` dependent wgmma accumulations on each
+    64 x 256 tile; ``threads`` a block, 128 or 256 (one or two warpgroups).
+    On the card m and x must be 16-byte aligned."""
     if m.shape != (64, 32) or x.dim() != 2 or x.shape[0] != 32 or x.shape[1] % 8 or x.shape[1] == 0:
         raise ValueError(f"imma_dot: shapes {tuple(m.shape)}, {tuple(x.shape)}; need (64, 32), (32, 8k)")
     if not 0 <= reps <= IMMA_MAX_REPS:
         raise ValueError(f"imma_dot: reps {reps} outside [0, {IMMA_MAX_REPS}]")
+    if threads not in IMMA_THREADS:
+        raise ValueError(f"imma_dot: threads {threads} is not one of {IMMA_THREADS}")
     if K._on_cpu("imma_dot", m, x, dtypes=(torch.int8,)):
         return imma_dot_plain(m, x, reps, threads)
+    if m.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("imma_dot: m and x must be 16-byte aligned")
     out = torch.empty((64, x.shape[1]), dtype=torch.int32, device=x.device)
     K._launch("imma_dot", "gkr_probe_imma_dot", x.device, m.data_ptr(), x.data_ptr(), out.data_ptr(),
               x.shape[1], reps, threads, counts=PROBE_LAUNCHES)
@@ -349,9 +362,9 @@ def mul_chain_plain(a, b, variant, chain=8, threads=256):
 
 def sbox_chain(x: torch.Tensor, layout: str, rounds: int = SBOX_ROUNDS) -> torch.Tensor:
     """``rounds`` dependent x^7 on each element of an (8, n) table ->
-    (8, n) canonical: "col" one thread an element, "row" the 8 limbs of an
-    element on 8 threads of one warp that share partial products and
-    carries by shuffles."""
+    (8, n) canonical: "col" one thread an element, four products deep,
+    "row" a pair of threads of one warp an element, three deep (x^3 and x^4
+    side by side); both on the product in radix 2^52 on the FP64 units."""
     lay = _pick("sbox_chain", layout, LAYOUTS)
     n = K._table_n("sbox_chain", x)
     if rounds < 0:
@@ -464,13 +477,14 @@ def small_cases(dev) -> dict:
     av, bv = field_check_ints()
     a, b = fr._limb_tensor(av, dev), fr._limb_tensor(bv, dev)
     m, x = imma_inputs(64, dev)
+    mw, xw = imma_inputs(1032, dev)  # five tiles, the last 8 columns wide
     chain_x = fr._limb_tensor(LAZY_EDGES + fr.limb_values(lazy_table(288, 5, "cpu")), dev)
     pe = [lazy_table(1 << 12, s, dev) for s in (1, 2, 3)]
     ark = fr.encode_mont_ints([145646], dev)
     return {
         "op_chain": [op_inputs((16, 32), body, dev, bits=bits, seed=bits) + (body, 8)
                      for body in OP_BODIES for bits in (16, 32)],
-        "imma_dot": [(m, x, 8), (m, x[:, :8].contiguous(), 3)],
+        "imma_dot": [(m, x, 8), (m, x[:, :8].contiguous(), 3)] + [(mw, xw, 5, t) for t in IMMA_THREADS],
         "field_check": [(a, b, v) for v in FIELD_VARIANTS],
         "mul_chain": [(chain_x, chain_x.flip(1).contiguous(), v, 8) for v in CHAIN_VARIANTS],
         "sbox_chain": [(fr._limb_tensor(LAZY_EDGES[:5], dev), layout) for layout in LAYOUTS],
@@ -545,18 +559,46 @@ def run_micro_ops(block: int = 256, reps: int = 256, n: int = 1 << 19) -> dict:
     args = (m, x, reps, 128)
     got = imma_dot(*args)
     check("imma_dot", got, imma_dot_plain(*args))
+    for mv, xv in ((-128, -128), (127, 127), (-128, 127)):  # the s32 sums' extremes
+        ext = (torch.full_like(m, mv), torch.full_like(x, xv), IMMA_MAX_REPS, 128)
+        check("imma_dot", imma_dot(*ext), imma_dot_plain(*ext))
+    print(f"imma_dot at reps {IMMA_MAX_REPS} on all-(-128), all-127 and mixed inputs: equal to its plain version",
+          flush=True)
     ms = time_ms(imma_dot, *args)
     macs = reps * 64 * 32 * n
     if not torch.equal(int_mm_scaled(m, x, reps), got):
         raise AssertionError("torch._int_mm(m, x) * reps differs from imma_dot")
     lib_ms = time_ms(int_mm_scaled, m, x, reps)
-    print(f"{'s8 mma 64x32':12s}: {ms:7.4f} ms -> {macs / (ms * 1e-3) / 1e12:7.3f} T MAC/s "
+    a, b = int_mm_equal_inputs(dev)
+    eq_macs = a.shape[0] * a.shape[1] * b.shape[1]
+    eq_ms = time_ms(torch._int_mm, a, b)
+    rate = lambda k, t: k / (t * 1e-3) / 1e12  # noqa: E731
+    print(f"{'s8 wgmma 64x32':12s}: {ms:7.4f} ms -> {rate(macs, ms):7.3f} T MAC/s "
           f"({2 * macs / (ms * 1e-3) / INT8_OPS_PER_S:6.1%} of {INT8_OPS_PER_S / 2e12:.1f} T MAC/s); "
-          f"torch._int_mm(m, x) * {reps}: {lib_ms:.4f} ms ({64 * 32 * n / (lib_ms * 1e-3) / 1e12:7.3f} T MAC/s "
-          f"of its own, one product), {ms / lib_ms:.3f}x the kernel's time", flush=True)
+          f"torch._int_mm(m, x) * {reps}: {lib_ms:.4f} ms ({rate(64 * 32 * n, lib_ms):7.3f} T MAC/s of its own, "
+          f"one product: 1/{reps} of the MACs, a value check and no yardstick); torch._int_mm at equal work "
+          f"{a.shape[0]}x{a.shape[1]} @ {a.shape[1]}x{b.shape[1]} ({eq_macs} MACs): {eq_ms:.4f} ms "
+          f"({rate(eq_macs, eq_ms):7.3f} T MAC/s, {2 * eq_macs / (eq_ms * 1e-3) / INT8_OPS_PER_S:6.1%}); "
+          f"the kernel at {rate(macs, ms) / rate(eq_macs, eq_ms):.3f}x cuBLAS's rate", flush=True)
     out["imma_dot"] = (ms, args)
     out["int_mm"] = (lib_ms, (m, x, reps))
+    out["int_mm_equal"] = (eq_ms, (a, b))
     return out
+
+
+def int_mm_equal_inputs(dev):
+    """torch._int_mm's operands at imma_dot's work (IMMA_EQUAL_WORK, 2^38
+    MACs at the default shape), random s8 from a seeded generator, B
+    column-major (cuBLAS's int8 layout); the product is first held to a
+    float64 one on a slice (exact: every sum is below 2^53)."""
+    rows, depth, cols = IMMA_EQUAL_WORK
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randint(-128, 128, (rows, depth), dtype=torch.int8, device=dev, generator=g)
+    b = torch.randint(-128, 128, (cols, depth), dtype=torch.int8, device=dev, generator=g).t()
+    got = torch._int_mm(a, b)[:16, :64].to(torch.float64)
+    if not torch.equal(got, a[:16].to(torch.float64) @ b[:, :64].to(torch.float64)):
+        raise AssertionError("torch._int_mm at equal work differs from its float64 product on a slice")
+    return a, b
 
 
 def int_mm_scaled(m, x, reps):
@@ -614,36 +656,46 @@ def run_micro_mul_split(bn: int = 20, threads: int = 256, names=CHAIN_VARIANTS, 
 
 def run_micro_row_mul(rounds: int = SBOX_ROUNDS) -> dict:
     """micro_row_mul.py: `rounds` dependent x^7 on one element in both
-    layouts; "row == col chain", µs an S-box and ns a dependent product,
-    and the same for the transcript hash's chain (K.mimc_hash, 9 words).
-    Returns {layout: (ms, args)}."""
+    layouts, each first held to the plain version at the lazy edges and on
+    the timed element, at `rounds` and 2 `rounds`, then "row == col
+    chain"; for each layout: µs an S-box, ns a dependent product (from the
+    slope between `rounds` and 2 `rounds`, which leaves out the launch),
+    its loop's SASS instructions (``sass``) and its ratio to the transcript
+    hash's chain (K.mimc_hash, 9 words, csrc/mimc.cuh). Returns {layout:
+    (ms, args)}, {("numbers", layout): {...}} and "mimc_hash"."""
     dev = _device()
     x = lazy_table(1, 3, dev)
-    got = {layout: sbox_chain(x, layout, rounds) for layout in LAYOUTS}
-    same = torch.equal(got["row"], got["col"])
+    edges = fr._limb_tensor(LAZY_EDGES, dev)
+    for layout in LAYOUTS:
+        for r in (rounds, 2 * rounds):
+            for t in (edges, x):
+                check("sbox_chain", sbox_chain(t, layout, r), sbox_chain_plain(t, layout, r))
+    print(f"sbox_chain: both layouts equal to the plain version at the {len(LAZY_EDGES)} lazy edges and the timed "
+          f"element, at {rounds} and {2 * rounds} rounds", flush=True)
+    same = torch.equal(sbox_chain(x, "row", rounds), sbox_chain(x, "col", rounds))
     print(f"row == col chain: {same}", flush=True)
     if not same:
         raise AssertionError("sbox_chain: the layouts differ")
-    check("sbox_chain", got["col"], sbox_chain_plain(x, "col", rounds))
-    out = {}
-    for layout in LAYOUTS:
-        args = (x, layout, rounds)
-        ms = time_ms(sbox_chain, *args)
-        us = ms * 1e3
-        # the slope between rounds and 2 * rounds leaves out the launch
-        check("sbox_chain", sbox_chain(x, layout, 2 * rounds), sbox_chain_plain(x, layout, 2 * rounds))
-        slope_us = (time_ms(sbox_chain, x, layout, 2 * rounds) - ms) * 1e3 / rounds
-        print(f"{layout}: {us:8.1f} us / {rounds} sboxes ({us / rounds:7.3f} us/sbox, "
-              f"{us * 1e3 / (4 * rounds):7.1f} ns/dependent product); {rounds} more sboxes add "
-              f"{slope_us:7.3f} us/sbox ({slope_us * 1e3 / 4:7.1f} ns/dependent product)", flush=True)
-        out[layout] = (ms, args)
     msgs = lazy_table(9, 4, dev)
-    ms = time_ms(K.mimc_hash, msgs)
-    us = ms * 1e3
-    print(f"mimc_hash (9 words, {MIMC_SBOXES_PER_HASH} sboxes): {us:8.1f} us "
-          f"({us / MIMC_SBOXES_PER_HASH:7.3f} us/sbox, "
-          f"{us * 1e3 / (4 * MIMC_SBOXES_PER_HASH):7.1f} ns/dependent product)", flush=True)
-    out["mimc_hash"] = (ms, (msgs,))
+    hash_ms = time_ms(K.mimc_hash, msgs)
+    hash_us = hash_ms * 1e3 / MIMC_SBOXES_PER_HASH
+    print(f"mimc_hash (9 words, {MIMC_SBOXES_PER_HASH} sboxes): {hash_ms * 1e3:8.1f} us ({hash_us:7.4f} us/sbox, "
+          f"{hash_us * 1e3 / 3:7.1f} ns a dependent product, 3 deep)", flush=True)
+    loops = sass_loops_of_library()
+    out = {"mimc_hash": (hash_ms, (msgs,))}
+    for layout in LAYOUTS:
+        ms = time_ms(sbox_chain, x, layout, rounds)
+        slope_us = (time_ms(sbox_chain, x, layout, 2 * rounds) - ms) * 1e3 / rounds
+        loop = [loop for name, (loop, _) in loops.items() if f"sbox_{layout}_kernel" in name]
+        row = {"layout": layout, "depth": SBOX_DEPTH[layout], "us_a_sbox": ms * 1e3 / rounds,
+               "slope_us_a_sbox": slope_us, "ns_a_dependent_product": slope_us * 1e3 / SBOX_DEPTH[layout],
+               "cycles_a_dependent_product": slope_us * 1e-6 / SBOX_DEPTH[layout] * CLOCK_HZ,
+               "loop_sass": len(loop[0]) if len(loop) == 1 else None,
+               "sass_a_product": len(loop[0]) / SBOX_DEPTH[layout] if len(loop) == 1 else None,
+               "x_mimc_hash_sbox": slope_us / hash_us}
+        print(json.dumps({"sbox_chain": row}), flush=True)
+        out[layout] = (ms, (x, layout, rounds))
+        out[("numbers", layout)] = row
     return out
 
 
@@ -710,8 +762,7 @@ def run_latency(reps: int = 1 << 14, chain: int = 256) -> dict:
 SASS_KERNELS = {
     **{f"op_chain_kernelILi{i}E": (f"op_chain {body}", 16) for i, body in enumerate(OP_BODIES)},
     **{f"mul_chain_kernelILi{i}E": (f"mul_chain {v}", 1) for i, v in enumerate(CHAIN_VARIANTS)},
-    "sbox_col_kernel": ("sbox_chain col (products)", 4),
-    "sbox_row_kernel": ("sbox_chain row (products)", 4),
+    **{f"sbox_{layout}_kernel": (f"sbox_chain {layout} (products)", SBOX_DEPTH[layout]) for layout in LAYOUTS},
 }
 _SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -742,31 +793,40 @@ def sass_loops(text: str) -> dict:
             funcs[name].append((addr, m.group(2), m.group(3), labels))
     out = {}
     for name, insns in funcs.items():
+        addrs, ops = [a for a, _, _, _ in insns], [o for _, o, _, _ in insns]  # in address order
         best = []
-        for addr, op, operands, labels in insns:
+        for i, (addr, op, operands, labels) in enumerate(insns):
             t = _SASS_TARGET.search(operands) if op.startswith("BRA") else None
             if t is None:
                 continue
             target = labels.get(t.group(1)) if t.group(1) else int(t.group(2), 16)
             if target is not None and target <= addr:
-                body = [o for a, o, _, _ in insns if target <= a <= addr]
+                body = ops[bisect.bisect_left(addrs, target):i + 1]
                 best = body if len(body) > len(best) else best
-        out[name] = (best, [o for _, o, _, _ in insns])
+        out[name] = (best, ops)
     return out
+
+
+@lru_cache(maxsize=1)
+def sass_loops_of_library() -> dict:
+    """``sass_loops`` of the built kernel library (``cuobjdump -sass``),
+    read once a process."""
+    from . import build
+
+    lib = build.build()
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    return sass_loops(text)
 
 
 def run_sass() -> dict:
     """The probes' chains as ptxas compiled them (``cuobjdump -sass`` of
     the built library): for each chain kernel, the instructions of its
     largest loop by opcode and a step's share of them (an op_chain loop
-    holds 16 steps, a mul_chain loop one, an sbox_chain loop one x^7 = 4
-    products). Returns {label: {opcode: count in the loop}}."""
-    from . import build
-
-    lib = build.build()
-    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
-    loops = sass_loops(text)
+    holds 16 steps, a mul_chain loop one, an sbox_chain loop one x^7: 4
+    products on a "col" thread, 3 on a "row" thread). Returns
+    {label: {opcode: count in the loop}}."""
+    loops = sass_loops_of_library()
     out = {}
     for key, (label, steps) in SASS_KERNELS.items():
         names = [n for n in loops if key in n]
