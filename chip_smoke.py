@@ -66,10 +66,13 @@ nvcc per source, in parallel) and, beside them, the gadget's host runtime
    op rates and the tensor-core dot on wgmma (beside torch._int_mm(m, x)
    * reps, the same function, and torch._int_mm at equal work, cuBLAS's
    int8 rate), imma_dot at IMMA_MAX_REPS on the extreme inputs,
-   check_mxu_mul's field check of both multiplies, the Montgomery-product
-   split, the S-box chain latency in both layouts (each at the lazy edges
-   and at rounds and 2 rounds first) beside the transcript hash chain's,
-   the partial-evals multiply A/B;
+   check_mxu_mul's field check of the four multiplies (fr::mul, mul_ptx,
+   mul_fips and the FP64 product), each timed in a CUDA graph beside its
+   latency floor (an empty kernel's launch and four dependent products),
+   the Montgomery-product split, the S-box chain latency in both layouts
+   (each at the lazy edges and at rounds and 2 rounds first) beside the
+   transcript hash chain's, the per-t partial evals against the deferred
+   kernel, with each redesigned probe's registers and spills;
 10. the standalone gadget at bn = --bn - 4 (2^18 hashes at the default,
    the low end of the reference's gadget benchmark range): the native host
    runtime built, 2^bn - 3 updates through ``update_hasher_batch`` (the
@@ -224,12 +227,13 @@ def card_line() -> str:
 # kernels whose registers, spills and shared memory phase 1 logs by name
 # (parts of their mangled names): the deferred rounds' two passes 1 (the
 # cipher rounds' in both instantiations, the identity rounds') and their
-# finishers, and the hash-chain kernels (the tail rounds' both gates among
-# them)
+# finishers, the hash-chain kernels (the tail rounds' both gates among
+# them) and the redesigned probes
 PASS1_WATCH = ("8deferred10acc_kernel", "8deferred19identity_acc_kernel")
 REGISTER_WATCH = PASS1_WATCH + ("8deferred19gruen_finish_kernel", "8deferred19coeff_finish_kernel",
                                 "8deferred22identity_finish_kernel", "gruen_round_kernel", "mimc_hash_kernel",
-                                "tail_kernel", "imma_dot_kernel", "sbox_col_kernel", "sbox_row_kernel")
+                                "tail_kernel", "imma_dot_kernel", "sbox_col_kernel", "sbox_row_kernel",
+                                "pe_per_t_kernel", "pe_finish_kernel", "field_check_kernel")
 
 
 def ptxas_usage(text: str) -> dict:
@@ -253,16 +257,19 @@ def ptxas_usage(text: str) -> dict:
     return out
 
 
-def log_sass() -> None:
+def log_sass() -> dict:
     """The watched kernels as ptxas compiled them (cuobjdump -sass of the
     built library): instructions in all and in the largest loop (pass 1's
     tile loop; the hash chain's round loop, one S-box), and the tensor-core
     (IMMA, and GMMA for warpgroup wgmma) and shuffle instructions of the
     loop. Fails if an instantiation of a deferred pass 1 has no IMMA in its
-    tile loop, or the imma_dot probe no GMMA in its loop."""
+    tile loop, or the imma_dot probe no GMMA in its loop. Returns
+    {kernel: instructions of its largest loop}."""
+    loops = {}
     for fn, (loop, whole) in Pr.sass_loops_of_library().items():
         if not any(key in fn for key in REGISTER_WATCH):
             continue
+        loops[fn] = len(loop)
         imma = sum(op.startswith("IMMA") for op in loop)
         gmma = sum("GMMA" in op for op in loop)
         shfl = sum(op.startswith("SHFL") for op in loop)
@@ -272,6 +279,24 @@ def log_sass() -> None:
             raise AssertionError(f"{fn}: no IMMA in its tile loop")
         if "imma_dot_kernel" in fn and gmma == 0:
             raise AssertionError(f"{fn}: no warpgroup GMMA in its loop")
+    return loops
+
+
+def log_build_report() -> tuple[dict, dict]:
+    """The built library's ptxas report (every kernel's registers and
+    spills) and the watched kernels' usage and SASS (log_sass). Returns
+    ({watched kernel: usage}, {watched kernel: instructions of its largest
+    loop})."""
+    report, usage = Path(f"{build.library_path()}.log"), {}
+    if report.exists():
+        text = report.read_text()
+        for line in text.splitlines():
+            if line.startswith("== ") or "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"#   ptxas {line.split('ptxas info    :')[-1].strip()}")
+        usage = {fn: use for fn, use in ptxas_usage(text).items() if any(key in fn for key in REGISTER_WATCH)}
+        for fn, use in usage.items():
+            log(f"# registers {fn}: {json.dumps(use)}")
+    return usage, log_sass()
 
 
 def sync() -> None:
@@ -568,12 +593,6 @@ def products_work(name: str, args) -> tuple[int, int]:
     if name == "mul_scalar":
         x, _ = args
         return FE * (2 * x.shape[-1] + 1), x.shape[-1]
-    # cipher_evals_per_t: the cipher round at every t, cipher_pe_variant's design
-    if name == "cipher_evals_per_t":
-        eq, g, n_evals, skip = args[0], args[-3], args[-2], args[-1]
-        n_out = n_evals - bool(skip)
-        # x^7 and the eq weight at each t
-        return FE * (3 * eq.shape[-1] + g + n_out * g), 5 * n_out * (eq.shape[-1] // 2)
     if name == "pow7":  # square, mul, square, mul per element
         n = args[0].shape[-1]
         return FE * 2 * n, 4 * n
@@ -1302,7 +1321,10 @@ def phase_circuits(bn: int, pbn: int, dev, card: str) -> dict:
 def probe_bound(name: str, args) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations") of a probe
     call: its 32-bit results at the data-sheet rate of their kind (int8
-    tensor-core operations for imma_dot), or its bytes."""
+    tensor-core operations for imma_dot), or its bytes. field_check's
+    latency floor, the least time of 256 elements four products deep, is
+    logged beside it (log_redesigned_probes), as tail_rounds' chain floor
+    is beside its bound."""
     if name == "op_chain":
         x, _, body, reps = args[:4]
         results, rate = Pr.OP_BODIES[body]
@@ -1322,10 +1344,9 @@ def probe_bound(name: str, args) -> tuple[float, str]:
         x, _, rounds = (args + (Pr.SBOX_ROUNDS,))[:3]
         n = x.shape[1]
         nbytes, t_ops = 2 * FE * n, 4 * rounds * MULS_PER_PRODUCT * n / INT_MULS_PER_S
-    elif name == "cipher_pe_variant":  # the per-t design: 5 reduced products a t
-        eq, x0, x1, ark = args[:4]
-        nbytes, products = products_work("cipher_evals_per_t", (eq, x0, x1, ark, 1, K.CIPHER_EVALS, False))
-        t_ops = products * MULS_PER_PRODUCT / INT_MULS_PER_S
+    elif name == "cipher_pe_variant":  # Pr.PE_RESULTS a (point, t), t = 0..8; three tables and ark in, 9 sums out
+        n = args[0].shape[-1]
+        nbytes, t_ops = FE * (3 * n + 1 + K.CIPHER_EVALS), n // 2 * K.CIPHER_EVALS * Pr.PE_RESULTS / INT_MULS_PER_S
     else:
         raise KeyError(name)
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1334,13 +1355,21 @@ def probe_bound(name: str, args) -> tuple[float, str]:
 
 PARENT_IMMA_MS = 0.4461  # the first port's mma.sync imma_dot at the timed shape (PERF.md's kernel table)
 PARENT_SBOX_NS = {"col": 2405, "row": 2407}  # the first port's CIOS chains, ns an S-box (PERF.md's kernel table)
+PARENT_PE_MS = 1.8087  # the first port's per-t cipher_pe_variant at 2^20, 256 threads (PERF.md's kernel table)
+PARENT_FIELD_CHECK_MS = 0.0366  # the first port's field_check, host loop, fr::mul (PERF.md's kernel table)
 
 
-def log_redesigned_probes(runs: dict, rows: dict) -> None:
-    """The two redesigned probes beside their yardsticks: imma_dot (wgmma)
+def log_redesigned_probes(runs: dict, rows: dict, usage: dict, loops: dict) -> None:
+    """The redesigned probes beside their yardsticks: imma_dot (wgmma)
     against its bound, the first port's mma.sync time and torch._int_mm at
     equal work; each sbox_chain layout's dependent product beside the
-    first port's chain and the transcript hash chain's (csrc/mimc.cuh)."""
+    first port's chain and the transcript hash chain's (csrc/mimc.cuh);
+    cipher_pe_variant at each block size against its bound, the first
+    port's time and v1's, with its registers and spills and the rate it
+    issues its loop's SASS (``usage`` and ``loops``, phase 1's readings);
+    field_check's graph-replayed time of each variant against the latency
+    floor of the fastest product and of its own, the host loop's time and
+    the first port's, and its registers and spills."""
     mo, row = runs["micro_ops"], rows["imma_dot"]
     ms, (m, x, reps, _) = mo["imma_dot"]
     eq_ms, (a, b) = mo["int_mm_equal"]
@@ -1358,14 +1387,50 @@ def log_redesigned_probes(runs: dict, rows: dict) -> None:
             f"dependent product, {r['sass_a_product']} SASS a product; parent (CIOS) {PARENT_SBOX_NS[layout]} ns an S-box "
             f"(PERF.md); mimc_hash {hash_ns:.1f} ns an S-box, {hash_ns / 3:.1f} ns a dependent product "
             f"({r['x_mimc_hash_sbox']:.3f}x its S-box)")
+    pe, bound_ms = runs["micro_pe_mxu"], rows["cipher_pe_variant"]["bound_ms"]
+    count_ms = bound_ms * Pr.PE_PRODUCTS * MULS_PER_PRODUCT / (K.CIPHER_EVALS * Pr.PE_RESULTS)
+    # mul_chain's products on independent elements: the rate the term's products allow
+    chain = {v: round(probe_bound("mul_chain", runs["micro_mul_split"][v][1])[0] / runs["micro_mul_split"][v][0], 4)
+             for v in Pr.PE_MIX}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for threads in Pr.PE_THREADS:
+        ms, args = pe[threads]
+        key = f"pe_per_t_kernelILi{threads}E"
+        use = [u for fn, u in usage.items() if key in fn]
+        loop = next((n for fn, n in loops.items() if key in fn), 0)  # SASS of one (point, t) term
+        warp_insts = args[0].shape[-1] // 2 * K.CIPHER_EVALS * loop / 32
+        rate = warp_insts / (ms * 1e-3) / (sms * Pr.CLOCK_HZ)
+        issue_ms = warp_insts / (sms * 4 * Pr.CLOCK_HZ) * 1e3  # one warp-instruction a clock on each of 4 schedulers
+        log(f"# redesigned cipher_pe_variant ({threads} threads; {json.dumps(Pr.PE_MIX)}): {ms:.4f} ms, "
+            f"{bound_ms / ms:.1%} of its bound {bound_ms:.4f} ms ({Pr.PE_RESULTS} results a (point, t)), "
+            f"{count_ms / ms:.1%} of the 45-product count's {count_ms:.4f} ms; parent (per t, nine sums a thread) "
+            f"{PARENT_PE_MS} ms (PERF.md); v1 (deferred) {pe['v1'][0]:.4f} ms; ptxas {json.dumps(use)}; {loop} SASS "
+            f"a term, {rate:.2f} warp-instructions a clock an SM at {Pr.CLOCK_HZ / 1e9:.2f} GHz ({rate / 4:.1%} of "
+            f"its four schedulers' issue; their floor for this SASS {issue_ms:.4f} ms); mul_chain on "
+            f"independent elements at {json.dumps(chain)} of its bound")
+    log(f"# ptxas pe_finish_kernel: {json.dumps([u for fn, u in usage.items() if 'pe_finish_kernel' in fn])}")
+    fc = runs["check_mxu_mul"]
+    least = fc["least"]
+    for variant in Pr.FIELD_VARIANTS:
+        r = fc[("numbers", variant)]
+        log(f"# redesigned field_check {variant} (one warp a block): {r['graph_ms'] * 1e3:.2f} us a call in a CUDA "
+            f"graph, {r['x_least_floor']:.3f}x the latency floor {least['floor_ms'] * 1e3:.2f} us (launch "
+            f"{r['launch_ms'] * 1e3:.2f} us + {Pr.FIELD_DEPTH} x {least['ns_a_product']:.1f} ns of {least['variant']}, "
+            f"the fastest product), {r['x_floor']:.3f}x its own product's {r['floor_ms'] * 1e3:.2f} us "
+            f"({Pr.FIELD_DEPTH} x {r['ns_a_product']:.1f} ns); host loop {r['host_loop_ms'] * 1e3:.2f} us (parent "
+            f"{PARENT_FIELD_CHECK_MS * 1e3:.1f} us, PERF.md)")
+    policy = {re.search(r"(Mul[A-Za-z0-9]+?)E", fn).group(1): u for fn, u in usage.items() if "field_check_kernel" in fn}
+    log(f"# ptxas field_check_kernel by product: {json.dumps(policy)}")
 
 
-def phase_probes(dev) -> dict:
+def phase_probes(dev, usage: dict, loops: dict) -> dict:
     """Phase 9. Returns per probe its row of the kernels line: launches in
-    the run of the scripts' counterparts (counts set to 0 just before it)
-    and the numbers of its representative case. Every probe call of the
-    phase is held to its plain version (Pr.check), the small cases here
-    and each timed case inside the scripts' counterparts."""
+    the run of the scripts' counterparts (counts set to 0 just before it;
+    a CUDA graph's calls count once, at capture, not at each replay) and
+    the numbers of its representative case. Every probe call of the phase
+    is held to its plain version (Pr.check), the small cases here and each
+    timed case inside the scripts' counterparts. ``usage`` and ``loops``
+    are phase 1's ptxas and SASS readings."""
     for name, cases in Pr.small_cases(dev).items():
         for args in cases:
             Pr.check(name, getattr(Pr, name)(*args), Pr.PLAIN[name](*args))
@@ -1403,7 +1468,7 @@ def phase_probes(dev) -> dict:
         log(f"# probe {name}: {ms:.4f} ms kernel vs {plain_ms:.2f} ms plain, bound {bound_ms:.6f} ms "
             f"({bound_by}), max err {Pr.MAX_ERR[name]}{lib}")
         del got, want
-    log_redesigned_probes(runs, rows)
+    log_redesigned_probes(runs, rows, usage, loops)
     torch.cuda.empty_cache()
     return rows
 
@@ -1954,16 +2019,7 @@ def main() -> int:
         log(f"# kernels built in {time.perf_counter() - t0:.1f} s -> {build.library_path().name}")
         log(f"# native host runtime built beside them -> {native_build.result().name} "
             f"({time.perf_counter() - t0:.1f} s)")
-    report = Path(f"{build.library_path()}.log")
-    if report.exists():
-        text = report.read_text()
-        for line in text.splitlines():
-            if line.startswith("== ") or "Compiling entry" in line or "registers" in line or "spill" in line:
-                log(f"#   ptxas {line.split('ptxas info    :')[-1].strip()}")
-        for fn, use in ptxas_usage(text).items():
-            if any(key in fn for key in REGISTER_WATCH):
-                log(f"# registers {fn}: {json.dumps(use)}")
-    log_sass()
+    usage, loops = log_build_report()
 
     phase_s = {"1": time.perf_counter() - start}
     mark = time.perf_counter()
@@ -2001,7 +2057,7 @@ def main() -> int:
     # 8. Poseidon's 397 layers at bn - 8: their tail rounds cost the same at every bn
     circuits = phase_circuits(bn - 2, bn - 8, dev, card)
     done("8")
-    probes = phase_probes(dev)  # 9.
+    probes = phase_probes(dev, usage, loops)  # 9.
     done("9")
     phase_gadget(bn - 4, dev, card)  # 10. 2^18 hashes at the default --bn
     done("10")

@@ -12,7 +12,9 @@
 //                tensor cores (wgmma m64n256k32, s8 x s8 -> s32, operands
 //                in shared memory); bound by the tensor-core rate.
 //   field_check  scripts/check_mxu_mul.py kern (:31, call :40): mul,
-//                square and x^7 of one multiply on lazy representatives.
+//                square and x^7 of one multiply on lazy representatives
+//                (fr::mul, mul_ptx, mul_fips or the FP64 product); bound by
+//                the latency of four dependent products and a launch.
 //   mul_chain    scripts/micro_mul_split.py make_chain_kernel (:106, call
 //                :154): `chain` dependent field ops a thread, split into
 //                the full product, the schoolbook only and REDC only; bound
@@ -35,6 +37,7 @@
 // counts each chain loop's instructions.
 #include <cuda_runtime.h>
 
+#include "f64m.cuh"
 #include "fr.cuh"
 
 namespace {
@@ -282,35 +285,54 @@ __global__ void __launch_bounds__(128 * kMaxWarpgroups) imma_dot_kernel(const in
 // field_check and mul_chain
 // ---------------------------------------------------------------------------
 
+// Each product policy: its element type, the conversions from and to the
+// port's (8, n) Montgomery form, mul and square. The three 32-bit products
+// work on the port's form itself; "f64" enters R' = 2^260 and leaves it
+// canonical (csrc/f64m.cuh).
 struct MulStd {
-  __device__ __forceinline__ static fr::Fe mul(const fr::Fe& a, const fr::Fe& b) { return fr::mul(a, b); }
-  __device__ __forceinline__ static fr::Fe square(const fr::Fe& a) { return fr::square(a); }
+  using T = fr::Fe;
+  __device__ __forceinline__ static T in(const fr::Fe& a) { return a; }
+  __device__ __forceinline__ static fr::Fe out(const T& a) { return a; }
+  __device__ __forceinline__ static T mul(const T& a, const T& b) { return fr::mul(a, b); }
+  __device__ __forceinline__ static T square(const T& a) { return fr::square(a); }
 };
-struct MulPtx {
-  __device__ __forceinline__ static fr::Fe mul(const fr::Fe& a, const fr::Fe& b) { return fr::mul_ptx(a, b); }
-  __device__ __forceinline__ static fr::Fe square(const fr::Fe& a) { return fr::square(a); }
+struct MulPtx : MulStd {
+  __device__ __forceinline__ static T mul(const T& a, const T& b) { return fr::mul_ptx(a, b); }
 };
-struct MulFips {
-  __device__ __forceinline__ static fr::Fe mul(const fr::Fe& a, const fr::Fe& b) { return fr::mul_fips(a, b); }
-  __device__ __forceinline__ static fr::Fe square(const fr::Fe& a) { return fr::square_fips(a); }
+struct MulFips : MulStd {
+  __device__ __forceinline__ static T mul(const T& a, const T& b) { return fr::mul_fips(a, b); }
+  __device__ __forceinline__ static T square(const T& a) { return fr::square_fips(a); }
+};
+struct MulF64 {
+  using T = f64m::F5;
+  __device__ __forceinline__ static T in(const fr::Fe& a) { return f64m::from_port(a); }
+  __device__ __forceinline__ static fr::Fe out(const T& a) { return f64m::to_port(a); }
+  __device__ __forceinline__ static T mul(const T& a, const T& b) { return f64m::mul(a, b); }
+  __device__ __forceinline__ static T square(const T& a) { return f64m::square(a); }
 };
 
-// out_mul = a * b, out_sq = a^2 by Mul's square (fr::square, or
-// fr::square_fips with fr::mul_fips), out_pow7 = a^7 by the chain square,
-// mul, square, mul of Mul's product: all REDC forms in Montgomery.
+// out (3, 8, n): a * b, a^2 by Mul's square, a^7 by the chain square, mul,
+// square, mul of Mul's product, in the port's Montgomery form (canonical
+// for "f64"). A latency probe: 256 elements four products deep, so one
+// warp a block puts each warp on an SM of its own, and the independent
+// product and square are issued between the chain's dependent products.
 template <typename Mul>
-__global__ void field_check_kernel(const int32_t* a, const int32_t* b, int32_t* out_mul, int32_t* out_sq,
-                                   int32_t* out_pow7, int64_t n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(32) field_check_kernel(const int32_t* a, const int32_t* b, int32_t* out, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * 32 + threadIdx.x;
   if (i >= n) return;
-  const fr::Fe x = fr::load(a, n, i), y = fr::load(b, n, i);
-  fr::store(out_mul, n, i, Mul::mul(x, y));
-  fr::store(out_sq, n, i, Mul::square(x));
-  const fr::Fe x2 = Mul::mul(x, x);
-  const fr::Fe x3 = Mul::mul(x2, x);
-  const fr::Fe x6 = Mul::mul(x3, x3);
-  fr::store(out_pow7, n, i, Mul::mul(x6, x));
+  const typename Mul::T x = Mul::in(fr::load(a, n, i)), y = Mul::in(fr::load(b, n, i));
+  const typename Mul::T x2 = Mul::mul(x, x);
+  const typename Mul::T xy = Mul::mul(x, y);
+  const typename Mul::T x3 = Mul::mul(x2, x);
+  const typename Mul::T sq = Mul::square(x);
+  const typename Mul::T x6 = Mul::mul(x3, x3);
+  fr::store(out, n, i, Mul::out(xy));
+  fr::store(out + fr::L * n, n, i, Mul::out(sq));
+  fr::store(out + 2 * fr::L * n, n, i, Mul::out(Mul::mul(x6, x)));
 }
+
+// The launch floor beside field_check: an empty kernel on its grid.
+__global__ void empty_kernel() {}
 
 // Variants, in the order of ops/probes.py CHAIN_VARIANTS.
 enum Variant { V_MUL, V_MUL_PTX, V_SQUARE, V_SCHOOL, V_REDC, V_MUL_FIPS, N_VARIANTS };
@@ -363,8 +385,8 @@ int launch_mul_chain(const void* a, const void* b, void* out, int64_t n, int cha
 // ---------------------------------------------------------------------------
 //
 // `rounds` dependent x^7 on one element: bound by the latency of one
-// dependent Montgomery product. Both layouts run the product below on the
-// FP64 units; "col" (a thread an element) runs the chain four products
+// dependent Montgomery product. Both layouts run the product of
+// csrc/f64m.cuh on the FP64 units; "col" (a thread an element) runs the chain four products
 // deep (square, mul, square, mul), "row" (a pair of threads of one warp an
 // element) three deep as csrc/mimc.cuh does (x^2, then x^3 and x^4 side by
 // side on the two threads, then x^3 x^4). Each was the fastest design of
@@ -374,207 +396,6 @@ int launch_mul_chain(const void* a, const void* b, void* out, int64_t n, int cha
 // the FP64 product three deep on one thread all ran slower. Each layout
 // converts once at entry and once at exit and stores the canonical
 // Montgomery (R = 2^256) value, so both give the same bits.
-
-// ---------------------------------------------------------------------------
-// Montgomery in radix 2^52 on the FP64 units
-// ---------------------------------------------------------------------------
-//
-// An element is five 52-bit limbs held as doubles (exact integers below
-// 2^52), Montgomery with R' = 2^260. The 25 limb products of a * b are
-// each split exactly into a high and a low half by the FP64 fused
-// multiply-add (Emmart, Zheng and Weems, "Faster Modular Exponentiation
-// Using Double Precision Floating Point Arithmetic on the GPU", ARITH
-// 2018), rounding toward zero:
-//   h = fma_rz(a, b, 2^104)   = 2^104 + 2^52 floor(a b / 2^52)  (in [2^104, 2^105): ulp 2^52)
-//   s = (2^104 + 2^52) - h    = 2^52 - 2^52 floor(a b / 2^52)   (exact)
-//   l = fma_rz(a, b, s)       = 2^52 + (a b mod 2^52)          (in [2^52, 2^53): ulp 1, exact)
-// so the bit patterns of h and l, less those of 2^104 and 2^52, are the two
-// halves as integers. Round to nearest would leave a signed low half that
-// straddles the binade at 2^52; round toward zero keeps both halves in one
-// binade each. Every split is written with the _rz intrinsics, so nvcc
-// cannot contract or reassociate it. The halves' bit patterns are summed
-// into ten 64-bit column sums (integer adds, modulo 2^64: each column
-// starts at minus the patterns' offsets it will receive, a constant), and
-// the Montgomery reduction runs on the columns limb by limb: q_i =
-// column_i * (-p^-1) mod 2^52 by a 64-bit integer multiply, the 20
-// products q_i p_j (j >= 1) split into the columns above it, and the carry
-// out of column i
-// is column_i's high bits + hi(q_i p_0) + (column_i's low 52 bits != 0),
-// since column_i + q_i p_0 = 0 mod 2^52. The result, columns 5..9
-// with the carries resolved, is (a b + q p) / 2^260 < a b / 2^260 + p: below
-// 2p for inputs below 2^255, in five limbs below 2^52 again. Entry
-// multiplies the port's a R by 2^264 mod p (-> a R'), exit multiplies by
-// 2^256 mod p (-> a R) and subtracts p once if needed.
-// tests/test_torch_probes_hopper.py models every step on Python ints and
-// asserts each headroom.
-namespace f64m {
-
-constexpr double kTwo52 = 0x1p52, kTwo104 = 0x1p104, kSplitSub = 0x1p104 + 0x1p52;
-constexpr uint64_t kBits52 = 0x4330000000000000ull;   // the pattern of 2^52
-constexpr uint64_t kBits104 = 0x4670000000000000ull;  // the pattern of 2^104
-constexpr uint64_t kMask52 = (1ull << 52) - 1;
-constexpr int N = 5;
-
-struct F5 {
-  double v[N];
-};
-
-// p in radix 2^52 and -p^-1 mod 2^52
-#define F64M_P {0x1f593f0000001ull, 0x4879b9709143eull, 0x181585d2833e8ull, 0xa029b85045b68ull, 0x30644e72e131ull}
-constexpr uint64_t kNp = 0x1f593efffffffull;
-// 2^264 mod p (entry: a R -> a R') and 2^256 mod p (exit: a R' -> a R), radix 2^52
-#define F64M_TO_R260 {0x31f8c9ffffab6ull, 0xac31329faef6eull, 0x9e2a3495d7570ull, 0xe357276f48b70ull, 0xd791464ef86ull}
-#define F64M_TO_R256 {0x6341c4ffffffbull, 0x959f60cd29ac9ull, 0x879462e36fc76ull, 0xdf2f666ea36f7ull, 0xe0a77c19a07ull}
-
-// (low, high) halves' patterns of a b (a, b < 2^52), added to the columns' sums.
-__device__ __forceinline__ void split_into(double a, double b, uint64_t& lo_col, uint64_t& hi_col) {
-  const double h = __fma_rz(a, b, kTwo104);
-  const double s = __dsub_rz(kSplitSub, h);
-  const double l = __fma_rz(a, b, s);
-  lo_col += static_cast<uint64_t>(__double_as_longlong(l));
-  hi_col += static_cast<uint64_t>(__double_as_longlong(h));
-}
-
-// x < 2^52 as a double: 2^52 + x from its pattern, less 2^52 (exact).
-__device__ __forceinline__ double from_u52(uint64_t x) {
-  return __dsub_rn(__longlong_as_double(static_cast<long long>(x | kBits52)), kTwo52);
-}
-
-// How many low and high halves column k receives: from the product's
-// limb pairs (i, j), i <= j when `sym`, and from the reduction's q_i p_j,
-// j >= 1; the column starts at minus their patterns' sum.
-__device__ __forceinline__ constexpr uint64_t col_offset(int k, bool prod, bool sym, bool diag, bool red) {
-  uint64_t lo = 0, hi = 0;
-  for (int i = 0; i < N; ++i)
-    for (int j = 0; j < N; ++j) {
-      const bool take = prod && (sym ? (diag ? i == j : i < j) : true);
-      const bool take_red = red && j >= 1;
-      lo += (take && i + j == k) + (take_red && i + j == k);
-      hi += (take && i + j + 1 == k) + (take_red && i + j + 1 == k);
-    }
-  return 0ull - (lo * kBits52 + hi * kBits104);
-}
-
-// Columns 0..9 of a product in hand -> REDC: (sum + q p) / 2^260 in limbs.
-__device__ __forceinline__ F5 reduce(uint64_t (&col)[2 * N]) {
-  const uint64_t p[N] = F64M_P;
-  uint64_t carry = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const uint64_t c = col[i] + carry;  // column i, everything below it resolved
-    const uint64_t x = c & kMask52;
-    // x (-p^-1) mod 2^52 by the integer multiply, which has the shorter
-    // latency (by the FP64 split it was 5 % slower an S-box on the card)
-    const double q = from_u52((x * kNp) & kMask52);
-    const double h0 = __fma_rz(q, static_cast<double>(p[0]), kTwo104);
-    carry = (c >> 52) + (static_cast<uint64_t>(__double_as_longlong(h0)) - kBits104) + (x != 0);
-#pragma unroll
-    for (int j = 1; j < N; ++j) split_into(q, static_cast<double>(p[j]), col[i + j], col[i + j + 1]);
-  }
-  F5 r;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const uint64_t t = col[N + k] + carry;
-    r.v[k] = from_u52(k < N - 1 ? t & kMask52 : t);
-    carry = t >> 52;
-  }
-  return r;
-}
-
-__device__ __forceinline__ F5 mul(const F5& a, const F5& b) {
-  uint64_t col[2 * N];
-#pragma unroll
-  for (int k = 0; k < 2 * N; ++k) col[k] = col_offset(k, true, false, false, true);
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) split_into(a.v[i], b.v[j], col[i + j], col[i + j + 1]);
-  return reduce(col);
-}
-
-// a^2: the 10 cross products once, the columns doubled, then the 5 squares.
-__device__ __forceinline__ F5 square(const F5& a) {
-  uint64_t col[2 * N];
-#pragma unroll
-  for (int k = 0; k < 2 * N; ++k) col[k] = col_offset(k, true, true, false, false);
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = i + 1; j < N; ++j) split_into(a.v[i], a.v[j], col[i + j], col[i + j + 1]);
-#pragma unroll
-  for (int k = 0; k < 2 * N; ++k) col[k] = (col[k] << 1) + col_offset(k, true, true, true, true);
-#pragma unroll
-  for (int i = 0; i < N; ++i) split_into(a.v[i], a.v[i], col[2 * i], col[2 * i + 1]);
-  return reduce(col);
-}
-
-__device__ __forceinline__ F5 constant(const uint64_t (&c)[N]) {
-  F5 r;
-#pragma unroll
-  for (int k = 0; k < N; ++k) r.v[k] = static_cast<double>(c[k]);
-  return r;
-}
-
-// The port's element (8 words, < 2p) -> five 52-bit limbs, and back.
-__device__ __forceinline__ F5 from_words(const fr::Fe& a) {
-  uint64_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) w[i] = static_cast<uint64_t>(a.v[2 * i]) | (static_cast<uint64_t>(a.v[2 * i + 1]) << 32);
-  F5 r;
-  r.v[0] = from_u52(w[0] & kMask52);
-  r.v[1] = from_u52(((w[0] >> 52) | (w[1] << 12)) & kMask52);
-  r.v[2] = from_u52(((w[1] >> 40) | (w[2] << 24)) & kMask52);
-  r.v[3] = from_u52(((w[2] >> 28) | (w[3] << 36)) & kMask52);
-  r.v[4] = from_u52(w[3] >> 16);
-  return r;
-}
-
-__device__ __forceinline__ fr::Fe to_words(const F5& a) {
-  uint64_t l[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k)
-    l[k] = static_cast<uint64_t>(__double_as_longlong(__dadd_rn(a.v[k], kTwo52))) & kMask52;
-  const uint64_t w[4] = {l[0] | (l[1] << 52), (l[1] >> 12) | (l[2] << 40), (l[2] >> 24) | (l[3] << 28),
-                         (l[3] >> 36) | (l[4] << 16)};
-  fr::Fe r;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    r.v[2 * i] = static_cast<uint32_t>(w[i]);
-    r.v[2 * i + 1] = static_cast<uint32_t>(w[i] >> 32);
-  }
-  return r;
-}
-
-// x^7 four deep on one thread.
-__device__ __forceinline__ F5 sbox(const F5& x) { return mul(square(mul(square(x), x)), x); }
-
-// x^7 three deep on a pair of neighbouring threads (csrc/mimc.cuh's shape):
-// both square, the even thread multiplies x^2 by x, the odd one by x^2,
-// and one exchange hands each the other's factor for x^3 x^4.
-__device__ __forceinline__ F5 sbox_pair(const F5& x, bool odd) {
-  const F5 x2 = square(x);
-  F5 y;
-#pragma unroll
-  for (int k = 0; k < N; ++k) y.v[k] = odd ? x2.v[k] : x.v[k];
-  const F5 z = mul(x2, y);
-  F5 o;
-#pragma unroll
-  for (int k = 0; k < N; ++k) o.v[k] = __shfl_xor_sync(kFull, z.v[k], 1);
-  return mul(z, o);  // the same integer on both threads: REDC(a b) = REDC(b a)
-}
-
-// `rounds` S-boxes, four deep on one thread or three deep on a pair (odd:
-// this thread is the pair's odd one).
-template <bool kPair>
-__device__ __forceinline__ fr::Fe chain(const fr::Fe& a, int rounds, bool odd) {
-  const uint64_t to_r260[N] = F64M_TO_R260, to_r256[N] = F64M_TO_R256;
-  F5 v = mul(from_words(a), constant(to_r260));
-#pragma unroll 1
-  for (int r = 0; r < rounds; ++r) v = kPair ? sbox_pair(v, odd) : sbox(v);
-  return fr::canonical(to_words(mul(v, constant(to_r256))));
-}
-
-}  // namespace f64m
 
 // "col": one thread per element.
 __global__ void sbox_col_kernel(const int32_t* x, int32_t* out, int64_t n, int rounds) {
@@ -641,23 +462,32 @@ extern "C" int gkr_probe_imma_dot(const void* m, const void* x, void* out, int64
   return static_cast<int>(cudaGetLastError());
 }
 
-// a, b, out_*: (8, n); variant 0 = fr::mul, 1 = fr::mul_ptx, 2 = fr::mul_fips.
-extern "C" int gkr_probe_field_check(const void* a, const void* b, void* out_mul, void* out_sq,
-                                     void* out_pow7, int64_t n, int64_t variant, void* stream) {
-  if (n <= 0 || variant < 0 || variant > 2) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kThreads = 128;
+// a, b: (8, n); out: (3, 8, n); variant 0 = fr::mul, 1 = fr::mul_ptx,
+// 2 = fr::mul_fips, 3 = the FP64 product (f64m; out canonical). One warp a
+// block.
+extern "C" int gkr_probe_field_check(const void* a, const void* b, void* out, int64_t n, int64_t variant,
+                                     void* stream) {
+  if (n <= 0 || variant < 0 || variant > 3) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* pa = static_cast<const int32_t*>(a);
   const auto* pb = static_cast<const int32_t*>(b);
-  auto* o1 = static_cast<int32_t*>(out_mul);
-  auto* o2 = static_cast<int32_t*>(out_sq);
-  auto* o3 = static_cast<int32_t*>(out_pow7);
+  auto* po = static_cast<int32_t*>(out);
+  const unsigned blocks = blocks_for(n, 32);
   if (variant == 0)
-    field_check_kernel<MulStd><<<blocks_for(n, kThreads), kThreads, 0, st>>>(pa, pb, o1, o2, o3, n);
+    field_check_kernel<MulStd><<<blocks, 32, 0, st>>>(pa, pb, po, n);
   else if (variant == 1)
-    field_check_kernel<MulPtx><<<blocks_for(n, kThreads), kThreads, 0, st>>>(pa, pb, o1, o2, o3, n);
+    field_check_kernel<MulPtx><<<blocks, 32, 0, st>>>(pa, pb, po, n);
+  else if (variant == 2)
+    field_check_kernel<MulFips><<<blocks, 32, 0, st>>>(pa, pb, po, n);
   else
-    field_check_kernel<MulFips><<<blocks_for(n, kThreads), kThreads, 0, st>>>(pa, pb, o1, o2, o3, n);
+    field_check_kernel<MulF64><<<blocks, 32, 0, st>>>(pa, pb, po, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The empty kernel on field_check's grid for n elements (one warp a block).
+extern "C" int gkr_probe_empty(int64_t n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  empty_kernel<<<blocks_for(n, 32), 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

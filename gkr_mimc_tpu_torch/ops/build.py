@@ -50,10 +50,11 @@ SIGNATURES = {
     "gkr_cipher_layer": (_P, _P, _P, _P, _I, _P),
     "gkr_tail_rounds": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # probes (ops/probes.py)
-    "gkr_cipher_partial_evals_ptx": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "gkr_cipher_partial_evals_ptx": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "gkr_probe_op_chain": (_P, _P, _P, _I, _I, _I, _I, _P),
     "gkr_probe_imma_dot": (_P, _P, _P, _I, _I, _I, _P),
-    "gkr_probe_field_check": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "gkr_probe_field_check": (_P, _P, _P, _I, _I, _P),
+    "gkr_probe_empty": (_I, _P),
     "gkr_probe_mul_chain": (_P, _P, _P, _I, _I, _I, _I, _P),
     "gkr_probe_sbox_chain": (_P, _P, _I, _I, _I, _P),
 }

@@ -105,12 +105,23 @@ OP_BODIES = {
 # products, then the same reduction; mul_fips: the hash chain's
 # product-scanning product)
 CHAIN_VARIANTS = {"mul": 264, "mul_ptx": 264, "square": 208, "school": 128, "redc": 136, "mul_fips": 264}
-FIELD_VARIANTS = ("mul", "mul_ptx", "mul_fips")
+# field_check variants, in the order of csrc/probes.cu's entry: the three
+# 32-bit products and the FP64 product of sbox_chain (csrc/f64m.cuh)
+FIELD_VARIANTS = ("mul", "mul_ptx", "mul_fips", "f64")
+FIELD_DEPTH = 4  # field_check's dependent products: x^2, x^3, x^6, x^7
+GRAPH_CALLS = 64  # field_check's calls a CUDA graph (graph_ms)
 LAYOUTS = ("col", "row")
 # sbox_chain: dependent products an S-box, by layout, which are also the
 # products a thread runs an S-box ("row" runs x^3 and x^4 on two threads)
 SBOX_DEPTH = {"col": 4, "row": 3}
 PE_THREADS = (128, 256, 512)
+# cipher_pe_variant's reduced products a (point, t) by the mul_chain variant
+# that runs them (csrc/partial_evals.cu term(): x^2 and x^6 by fr::square;
+# x^3, x^7 and the eq weight by fr::mul_ptx), and their 32-bit results,
+# 1,208, which set its bound
+PE_MIX = {"square": 2, "mul_ptx": 3}
+PE_RESULTS = sum(CHAIN_VARIANTS[v] * k for v, k in PE_MIX.items())
+PE_PRODUCTS = 45  # its reduced products a point, 5 at each of 9 t's: 45 x 264 results, the count before PE_MIX
 SBOX_ROUNDS = 91  # micro_row_mul.py: one permutation's worth of S-boxes
 IMMA_MAX_REPS = 4095  # |sum| <= reps * 32 * 128 * 128 = reps * 2^19 < 2^31: the s32 sums stay exact
 IMMA_THREADS = (128, 256)  # one or two warpgroups a block
@@ -278,23 +289,32 @@ def imma_dot_plain(m, x, reps, threads=128):
 
 def field_check(a: torch.Tensor, b: torch.Tensor, variant: str):
     """(a * b, a^2, a^7) in Montgomery form on lazy representatives: a, b
-    (8, n) -> three (8, n). The product and x^7 (square, mul, square, mul)
-    run on ``variant``'s multiply (fr::mul, fr::mul_ptx or fr::mul_fips),
-    the square on fr::square (fr::square_fips beside fr::mul_fips)."""
+    (8, n) -> three (8, n) views of one (3, 8, n) tensor. The product and
+    x^7 (square, mul, square, mul) run on ``variant``'s multiply (fr::mul,
+    fr::mul_ptx, fr::mul_fips, or "f64": the FP64 product in R' = 2^260,
+    whose outputs are canonical), the square on fr::square
+    (fr::square_fips beside fr::mul_fips, f64m::square for "f64")."""
     v = _pick("field_check", variant, FIELD_VARIANTS)
     n = K._table_n("field_check", a)
     if b.shape != a.shape:
         raise ValueError(f"field_check: shapes {tuple(a.shape)}, {tuple(b.shape)}")
     if K._on_cpu("field_check", a, b):
         return field_check_plain(a, b, variant)
-    outs = [torch.empty_like(a) for _ in range(3)]
-    K._launch("field_check", "gkr_probe_field_check", a.device, a.data_ptr(), b.data_ptr(),
-              *(o.data_ptr() for o in outs), n, v, counts=PROBE_LAUNCHES)
-    return tuple(outs)
+    out = torch.empty((3, L, n), dtype=torch.int32, device=a.device)
+    K._launch("field_check", "gkr_probe_field_check", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, v,
+              counts=PROBE_LAUNCHES)
+    return tuple(out.unbind(0))
 
 
 def field_check_plain(a, b, variant):
-    return fr.mul(a, b), fr.square(a), fr.pow7(a)
+    outs = fr.mul(a, b), fr.square(a), fr.pow7(a)
+    return tuple(fr.canonicalize(o) for o in outs) if variant == "f64" else outs
+
+
+def empty_launch(n: int, device) -> None:
+    """The empty kernel on field_check's grid for n elements (the launch
+    in field_check's latency floor; no probe, so no launch count)."""
+    K._launch("empty", "gkr_probe_empty", device, n, counts={"empty": 0})
 
 
 # ---------------------------------------------------------------------------
@@ -393,21 +413,21 @@ def sbox_chain_plain(x, layout, rounds=SBOX_ROUNDS):
 def cipher_pe_variant(eq: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor, ark: torch.Tensor,
                       threads: int = 256) -> torch.Tensor:
     """The cipher round's sums at t = 0..8 (one group) by the per-t design,
-    the S-box at every t (``kernels.cipher_evals_per_t``, lazy), on the
-    kernel instantiated with fr::mul_ptx at ``threads`` = 128, 256 or 512
-    a block: eq, x0, x1 (8, n), ark (8, 1) -> (8, 9, 1). The production
-    kernel (``kernels.cipher_partial_evals``) computes the same values,
-    canonical, by the deferred contraction."""
+    the S-box at every t (``kernels.cipher_evals_per_t``, lazy), at
+    ``threads`` = 128, 256 or 512 a block: eq, x0, x1 (8, n), ark (8, 1) ->
+    (8, 9, 1). The products run on fr::square and fr::mul_ptx; the sums are
+    integers, reduced mod 2p once. The production kernel
+    (``kernels.cipher_partial_evals``) computes the same values, canonical,
+    by the deferred contraction."""
     _pick("cipher_pe_variant", threads, PE_THREADS)
     K._expect("cipher_pe_variant", ark, (L, 1))
     half = K._round_geometry("cipher_pe_variant", [eq, x0, x1], 1)
     if K._on_cpu("cipher_pe_variant", eq, x0, x1, ark):
         return cipher_pe_variant_plain(eq, x0, x1, ark, threads)
-    bpg = max(1, min(-(-half // threads), 2048 * 256 // threads))  # 2048 blocks of 256 threads in flight
-    partial = torch.empty((bpg, K.CIPHER_EVALS, L), dtype=torch.int32, device=eq.device)
+    sums = torch.empty((K.CIPHER_EVALS, L + 1), dtype=torch.int64, device=eq.device)  # zeroed by the C entry
     out = torch.empty((L, K.CIPHER_EVALS, 1), dtype=torch.int32, device=eq.device)
     K._launch("cipher_pe_variant", "gkr_cipher_partial_evals_ptx", eq.device, eq.data_ptr(), x0.data_ptr(),
-              x1.data_ptr(), ark.data_ptr(), partial.data_ptr(), out.data_ptr(), half, 1, bpg, threads,
+              x1.data_ptr(), ark.data_ptr(), sums.data_ptr(), out.data_ptr(), half, threads,
               counts=PROBE_LAUNCHES)
     return out
 
@@ -480,6 +500,7 @@ def small_cases(dev) -> dict:
     mw, xw = imma_inputs(1032, dev)  # five tiles, the last 8 columns wide
     chain_x = fr._limb_tensor(LAZY_EDGES + fr.limb_values(lazy_table(288, 5, "cpu")), dev)
     pe = [lazy_table(1 << 12, s, dev) for s in (1, 2, 3)]
+    top = fr._limb_tensor([2 * P - 1] * (1 << 12), dev)  # the integer sums at their largest
     ark = fr.encode_mont_ints([145646], dev)
     return {
         "op_chain": [op_inputs((16, 32), body, dev, bits=bits, seed=bits) + (body, 8)
@@ -488,7 +509,7 @@ def small_cases(dev) -> dict:
         "field_check": [(a, b, v) for v in FIELD_VARIANTS],
         "mul_chain": [(chain_x, chain_x.flip(1).contiguous(), v, 8) for v in CHAIN_VARIANTS],
         "sbox_chain": [(fr._limb_tensor(LAZY_EDGES[:5], dev), layout) for layout in LAYOUTS],
-        "cipher_pe_variant": [(*pe, ark, t) for t in PE_THREADS],
+        "cipher_pe_variant": [(*pe, ark, t) for t in PE_THREADS] + [(top, top, top, top[:, :1].contiguous(), 256)],
     }
 
 
@@ -530,6 +551,51 @@ def time_ms(fn, *args) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, *args, calls: int = GRAPH_CALLS) -> float:
+    """Device ms a call, the host's issue rate taken out: ``calls`` calls
+    captured in one CUDA graph (after a warm-up call on a side stream, as
+    capture wants), the graph replayed once, then enough times to fill
+    20 ms between CUDA events. A graph's launches are not counted again."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn(*args)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    reps = math.ceil(20.0 / max(start.elapsed_time(end), 1e-3))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def product_ns(variant: str, chain: int = 256) -> float:
+    """ns a dependent product on one thread of an otherwise idle card: for
+    a mul_chain variant, the slope of mul_chain on one element between
+    ``chain`` and 2 ``chain`` steps; for "f64", the slope of sbox_chain
+    "col" between SBOX_ROUNDS and twice as many S-boxes, over its four
+    products an S-box."""
+    dev = _device()
+    if variant == "f64":
+        x = lazy_table(1, 3, dev)
+        t1, t2 = (time_ms(sbox_chain, x, "col", r) for r in (SBOX_ROUNDS, 2 * SBOX_ROUNDS))
+        return (t2 - t1) * 1e6 / SBOX_ROUNDS / SBOX_DEPTH["col"]
+    a, b = lazy_table(1, 1, dev), lazy_table(1, 2, dev)
+    t1, t2 = (time_ms(mul_chain, a, b, variant, c, 32) for c in (chain, 2 * chain))
+    return (t2 - t1) * 1e6 / chain
 
 
 def _device() -> torch.device:
@@ -607,12 +673,22 @@ def int_mm_scaled(m, x, reps):
 
 
 def run_check_mxu_mul() -> dict:
-    """check_mxu_mul.py: field_check of both multiplies on the script's 256
-    inputs; raises on a mismatch. Returns {variant: (ms, args)}."""
+    """check_mxu_mul.py: field_check of every multiply on the script's 256
+    inputs; raises on a mismatch. Then, for each variant, the device time
+    a call (``graph_ms``), the host loop's time a call (``time_ms``, which
+    at 256 elements reads the host's issue rate) and two latency floors:
+    one launch (the empty kernel on the same grid, graph-replayed) plus
+    FIELD_DEPTH dependent products (``product_ns``) of the variant's own
+    product, and of the fastest product measured (``least``, the floor of
+    the function itself). 256 elements four products deep are too few to
+    fill the card, so a floor, not the multiply rate, is the least time.
+    Returns {variant: (ms, args)}, {("numbers", variant): {...}} and
+    {"least": {...}}."""
     dev = _device()
     av, bv = field_check_ints()
     a, b = fr._limb_tensor(av, dev), fr._limb_tensor(bv, dev)
-    out = {}
+    launch_ms = graph_ms(empty_launch, a.shape[1], dev)
+    out, rows = {}, []
     for variant in FIELD_VARIANTS:
         outs = field_check(a, b, variant)
         bad = field_check_values(av, bv, outs)
@@ -620,7 +696,20 @@ def run_check_mxu_mul() -> dict:
         if bad:
             raise AssertionError(f"field_check {variant}: {bad} mismatches")
         check("field_check", outs, field_check_plain(a, b, variant))
-        out[variant] = (time_ms(field_check, a, b, variant), (a, b, variant))
+        ms, ns = graph_ms(field_check, a, b, variant), product_ns(variant)
+        floor_ms = launch_ms + FIELD_DEPTH * ns * 1e-6
+        rows.append({"variant": variant, "graph_ms": ms, "host_loop_ms": time_ms(field_check, a, b, variant),
+                     "launch_ms": launch_ms, "ns_a_product": ns, "floor_ms": floor_ms, "x_floor": ms / floor_ms})
+        out[variant] = (ms, (a, b, variant))
+    fastest = min(rows, key=lambda r: r["ns_a_product"])
+    least = {"variant": fastest["variant"], "ns_a_product": fastest["ns_a_product"],
+             "floor_ms": launch_ms + FIELD_DEPTH * fastest["ns_a_product"] * 1e-6}
+    for row in rows:
+        row["x_least_floor"] = row["graph_ms"] / least["floor_ms"]
+        print(json.dumps({"field_check": row}), flush=True)
+        out[("numbers", row["variant"])] = row
+    print(json.dumps({"field_check_least_floor": least}), flush=True)
+    out["least"] = least
     return out
 
 
@@ -700,14 +789,16 @@ def run_micro_row_mul(rounds: int = SBOX_ROUNDS) -> dict:
 
 
 def run_micro_pe_mxu(bn: int = 20) -> dict:
-    """micro_pe_mxu.py: the cipher partial evals (9 evals) on fr::mul_ptx
-    against the production kernel (v1), as the TPU script compares its
-    variant with the production kernel: value match at 2^12, then ms at
-    2^bn for each block size and the speed-up, each timed case first held
-    to v1's output there and v1's to the plain version. The variant keeps
-    the per-t design (5 products a t) and v1 is the deferred contraction,
-    so the speed-up compares two designs as well as two multiplies; the
-    variant's lazy sums are compared canonical. Returns {case: (ms, args)}."""
+    """micro_pe_mxu.py: the cipher partial evals (9 evals) by the per-t
+    design against the production kernel (v1), as the TPU script compares
+    its variant with the production kernel: value match at 2^12, then ms at
+    2^bn for each block size, the speed-up and the share of the per-t
+    design's bound (PE_RESULTS 32-bit results a (point, t) at the
+    data-sheet rate; the count of 45 products of 264 results a point
+    beside it), each
+    timed case first held to v1's output there and v1's to the plain
+    version. The variant's lazy sums are compared canonical. Returns
+    {case: (ms, args)}."""
     dev = _device()
     n = 1 << bn
     eq, x0, x1 = (lazy_table(n, s, dev) for s in (1, 2, 3))
@@ -716,19 +807,22 @@ def run_micro_pe_mxu(bn: int = 20) -> dict:
     sl = [t[:, :small].contiguous() for t in (eq, x0, x1)]
     v1 = K.cipher_partial_evals(*sl, ark, 1, K.CIPHER_EVALS, False)
     ok = all(torch.equal(v1, fr.canonicalize(cipher_pe_variant(*sl, ark, t))) for t in PE_THREADS)
-    print(f"value match v1 vs mul_ptx: {ok}", flush=True)
+    print(f"value match v1 vs per-t: {ok}", flush=True)
     if not ok:
         raise AssertionError("cipher_pe_variant differs from cipher_partial_evals")
     v1 = K.cipher_partial_evals(eq, x0, x1, ark, 1, K.CIPHER_EVALS, False)
     check("cipher_pe_variant", v1, fr.canonicalize(cipher_pe_variant_plain(eq, x0, x1, ark)))
     t1 = time_ms(K.cipher_partial_evals, eq, x0, x1, ark, 1, K.CIPHER_EVALS, False)
     print(f"pe v1 (deferred contraction) n=2^{bn}: {t1:8.4f} ms", flush=True)
+    bound_ms = n // 2 * K.CIPHER_EVALS * PE_RESULTS / INT_RESULTS_PER_S * 1e3
+    count_ms = n // 2 * PE_PRODUCTS * MULS_PER_PRODUCT / INT_RESULTS_PER_S * 1e3
     out = {"v1": (t1, (eq, x0, x1, ark, 1, K.CIPHER_EVALS, False))}
     for t in PE_THREADS:
         args = (eq, x0, x1, ark, t)
         check("cipher_pe_variant", fr.canonicalize(cipher_pe_variant(*args)), v1)
         t2 = time_ms(cipher_pe_variant, *args)
-        print(f"pe mul_ptx ({t:3d} threads) n=2^{bn}: {t2:8.4f} ms   ({t1 / t2:.3f}x)", flush=True)
+        print(f"pe per-t ({t:3d} threads) n=2^{bn}: {t2:8.4f} ms ({t1 / t2:.3f}x v1; {bound_ms / t2:6.1%} of its "
+              f"{bound_ms:.4f} ms bound, {count_ms / t2:6.1%} of the 45-product count's {count_ms:.4f} ms)", flush=True)
         out[t] = (t2, args)
     return out
 
@@ -751,10 +845,8 @@ def run_latency(reps: int = 1 << 14, chain: int = 256) -> dict:
         x, y = op_inputs((1, 32), body, dev)
         t1, t2 = (time_ms(op_chain, x, y, body, r, 32) for r in (reps, 2 * reps))
         report(f"op_chain {body}", (t2 - t1) * 1e6 / reps)
-    a, b = lazy_table(1, 1, dev), lazy_table(1, 2, dev)
     for variant in CHAIN_VARIANTS:
-        t1, t2 = (time_ms(mul_chain, a, b, variant, c, 32) for c in (chain, 2 * chain))
-        report(f"mul_chain {variant}", (t2 - t1) * 1e6 / chain)
+        report(f"mul_chain {variant}", product_ns(variant, chain))
     return out
 
 
@@ -763,6 +855,7 @@ SASS_KERNELS = {
     **{f"op_chain_kernelILi{i}E": (f"op_chain {body}", 16) for i, body in enumerate(OP_BODIES)},
     **{f"mul_chain_kernelILi{i}E": (f"mul_chain {v}", 1) for i, v in enumerate(CHAIN_VARIANTS)},
     **{f"sbox_{layout}_kernel": (f"sbox_chain {layout} (products)", SBOX_DEPTH[layout]) for layout in LAYOUTS},
+    **{f"pe_per_t_kernelILi{t}E": (f"cipher_pe_variant {t} threads ((point, t) terms)", 1) for t in PE_THREADS},
 }
 _SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -824,7 +917,8 @@ def run_sass() -> dict:
     the built library): for each chain kernel, the instructions of its
     largest loop by opcode and a step's share of them (an op_chain loop
     holds 16 steps, a mul_chain loop one, an sbox_chain loop one x^7: 4
-    products on a "col" thread, 3 on a "row" thread). Returns
+    products on a "col" thread, 3 on a "row" thread; a cipher_pe_variant
+    loop one point, and inside it the t loop's one term). Returns
     {label: {opcode: count in the loop}}."""
     loops = sass_loops_of_library()
     out = {}

@@ -124,8 +124,9 @@ def test_probe_matches_plain(cuda_device, name):
 @pytest.mark.gpu
 def test_mul_ptx_and_square_equal_mul_on_edges(cuda_device):
     """fr::mul_ptx, fr::mul_fips, fr::square and fr::square_fips give
-    fr::mul's integers on every pair of lazy-range edge values; the mul_ptx
-    partial evals (per t, lazy) equal the production kernel's (deferred,
+    fr::mul's integers on every pair of lazy-range edge values, and the FP64
+    product (field_check "f64") those integers made canonical; the per-t
+    partial evals (lazy) equal the production kernel's (deferred,
     canonical) once canonical."""
     edges = Pr.LAZY_EDGES
     a = fr._limb_tensor([x for x in edges for _ in edges], cuda_device)
@@ -136,6 +137,7 @@ def test_mul_ptx_and_square_equal_mul_on_edges(cuda_device):
     for variant in ("mul_ptx", "mul_fips"):
         assert all(torch.equal(s, p) for s, p in zip(std, Pr.field_check(a, b, variant)))
         assert torch.equal(Pr.field_check(a, a, variant)[1], sq_std[1])
+    assert all(torch.equal(fr.canonicalize(s), f) for s, f in zip(std, Pr.field_check(a, b, "f64")))
     eq, x0, x1 = (Pr.lazy_table(1 << 12, s, cuda_device) for s in (1, 2, 3))
     ark = fr.encode_mont_ints([145646], cuda_device)
     v1 = K.cipher_partial_evals(eq, x0, x1, ark, 1, 9, False)

@@ -1,5 +1,6 @@
 """Models of the redesigned probe kernels of csrc/probes.cu, on the CPU:
-sbox_chain's product (radix 2^52 on the FP64 units, both layouts) step by
+sbox_chain's product (radix 2^52 on the FP64 units, csrc/f64m.cuh; both
+layouts) step by
 step on Python ints, held bit for bit to the port's fr.mul on the lazy edges
 and 256 seeded values below 2p; the shared-memory layout and descriptors of
 imma_dot's wgmma, byte by byte; and the two wrappers, which take their plain
@@ -19,7 +20,9 @@ from gkr_mimc_tpu_torch.fields import fr
 from gkr_mimc_tpu_torch.fields.bn254 import P, RINV
 from gkr_mimc_tpu_torch.ops import probes as Pr
 
-SRC = (Path(Pr.__file__).resolve().parent.parent / "csrc" / "probes.cu").read_text()
+CSRC = Path(Pr.__file__).resolve().parent.parent / "csrc"
+SRC = (CSRC / "probes.cu").read_text()
+F64M_SRC = (CSRC / "f64m.cuh").read_text()
 M64 = (1 << 64) - 1
 
 
@@ -36,7 +39,7 @@ def _fr_mul(a: list, b: list) -> list:
 
 
 def _cuda_constants(name: str) -> list:
-    body = re.search(rf"#define {name} \{{([^}}]*)\}}", SRC).group(1)
+    body = re.search(rf"#define {name} \{{([^}}]*)\}}", F64M_SRC).group(1)
     return [int(v.strip().rstrip("ul"), 16) for v in body.split(",")]
 
 
@@ -175,9 +178,9 @@ def test_f64_constants_are_the_models():
     assert _cuda_constants("F64M_P") == _limbs52(P)
     assert _cuda_constants("F64M_TO_R260") == _limbs52((1 << 264) % P)
     assert _cuda_constants("F64M_TO_R256") == _limbs52((1 << 256) % P)
-    assert int(re.search(r"kNp = (0x[0-9a-f]+)ull", SRC).group(1), 16) == NP52
-    assert int(re.search(r"kBits52 = (0x[0-9a-f]+)ull", SRC).group(1), 16) == B52
-    assert int(re.search(r"kBits104 = (0x[0-9a-f]+)ull", SRC).group(1), 16) == B104
+    assert int(re.search(r"kNp = (0x[0-9a-f]+)ull", F64M_SRC).group(1), 16) == NP52
+    assert int(re.search(r"kBits52 = (0x[0-9a-f]+)ull", F64M_SRC).group(1), 16) == B52
+    assert int(re.search(r"kBits104 = (0x[0-9a-f]+)ull", F64M_SRC).group(1), 16) == B104
 
 
 def test_f64_product_model_equals_fr_mul():
