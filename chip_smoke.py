@@ -37,17 +37,26 @@ nvcc per source, in parallel) and, beside them, the gadget's host runtime
    bn = 10 (its eq tables built through mul_scalar) equal to the default
    "gruen" walk, and G = 2 lanes at bn = 8 each equal to the gruen walk
    of its inputs;
-5. the main path at --bn (default 22, the north-star size): inputs
-   generated on the card, witness, GKR proof, verification, a tamper probe,
-   and the launch count of every kernel during that run;
+5. the main path at --bn (default 22, the north-star size), through the
+   entry's single mode (``gkr_mimc_tpu_torch.bench.single``, resident
+   witness, no warm-up): inputs generated on the card, witness, GKR
+   proof, verification (cold and hot), a tamper probe, and the launch
+   count of every kernel during that run;
 7. (run right after phase 5, while its witness is resident) phase 5's
    inputs and witness proven again on the "coeff" and the "evals" round
    paths: each proof verifies, rejects the tamper probe and has phase 5's
    proof vector; prove time and the launch counts of each run;
 6. the grouped path, G = 4 instances at bn = --bn - 2 (as many hashes as
-   the main path): inputs on the card, witness, grouped proof,
-   verify_grouped, a tamper probe in lane 2 that must be named, and the
-   launch counts of that run;
+   the main path), through the entry's grouped mode (the resident
+   witness): inputs on the card, witness, grouped proof, verify_grouped,
+   a tamper probe in lane 2 that must be named, and the launch counts of
+   that run;
+14. (run after phase 6) the entry's chunked mode at T = --bn in chunks of
+   2^(--bn - 2): every chunk verified (chunk k after chunk k + 1 was
+   dispatched), each chunk's outputs against the host permutation at
+   sampled instances, the peak memory (one chunk's witness at a time),
+   the loop's time beside one chunk's serial time x the chunks; then the
+   entry's layer report at --bn;
 8. the other circuits: GMiMC T2 (96 layers) at bn = --bn - 2 and Poseidon
    T2 (RF 8, RP 82: 397 layers) at bn = --bn - 8, each through the generic
    witness (circuits.assign), proof, verification, a tamper probe and its
@@ -85,34 +94,38 @@ nvcc per source, in parallel) and, beside them, the gadget's host runtime
    expected ones; then one gadget's close() at bn = 10 through the kernels
    and again through the plain twins: the same proof;
 11. the Groth16 pipeline at bN = 2 (the shape of the JAX package's
-   test_gadget_pipeline_batched_hasher; the reference benchmarks
-   2^18-2^24 hashes, cut by the host's pure-Python tracer): GadgetCircuit
+   test_gadget_pipeline_batched_hasher; ``python -m
+   gkr_mimc_tpu_torch.bench_pipeline`` runs larger N), through the
+   pipeline entry (``bench_pipeline.run``): GadgetCircuit
    over 4 messages hashed by one ``update_hasher_batch`` (the hash hint
    and the GKR prover hint on the card, all else on the host),
    ``compile()`` (the R1CS sizes logged), ``setup(seed)``,
-   ``prove(seed)`` and ``groth16.verify``, each stage timed (solve's and
+   ``prove()`` and ``groth16.verify``, each stage timed (solve's and
    compile's card parts, the in-circuit verifier, computeH, the MSMs);
    three tamper probes (KrsGkrPriv, the first public value, Ar) that must
    raise Groth16VerifyError; the solve trace's GKR inputs proven again
    through the plain twins (the same proof vector); the run's launch
    counts, every kernel, against the expected ones;
 12. (run after phase 7, while phase 5's proof vector is held) the sharded
-   walk (gkr_mimc_tpu_torch.parallel, rounds="coeff") at --bn: (a) world
-   size 1 on nccl in this process, the rank's slab of the inputs from
+   walk (gkr_mimc_tpu_torch.parallel, rounds="coeff"): (a) at --bn
+   through the entry's sharded mode, world size 1 on nccl in this
+   process, the rank's slab of the inputs from
    ``shard_mimc_inputs_global``, ``assign_sharded_mimc``,
-   ``prove_gkr_sharded``, verified with the unsharded tables, a tamper
+   ``prove_gkr_sharded``, verified with the gathered tables, a tamper
    probe, phase 5's proof vector, the run's launch counts against the
    schedule; (b) two ranks started by this script on the one card, gloo
-   (nccl refuses two ranks on one device), each building only its slab of
-   phase 5's inputs: rank 0's proof vector is phase 5's, each rank's
-   times, collectives, launch counts and exit code logged; a rank that
-   fails or outlives its time limit fails the phase with its output;
+   (nccl refuses two ranks on one device), each building only its slab
+   of the main path's inputs: rank 0's proof vector is phase 5's, each
+   rank's times, collectives, launch counts and
+   exit code logged; a rank that fails or outlives its time limit fails
+   the phase with its output;
 13. the checkpointed witness (``models.checkpoint.CheckpointedAssignment``,
-   stride 13) on the default path, each stage under
-   ``utils.profiling.Timer``: (a) at --bn, phase 5's proof vector, its peak
-   memory beside phase 5's; (b) at --bn + 3 (2^25 hashes at the default,
-   whose resident witness would need 101 GB): inputs on the card, witness,
-   prove, verify, a tamper probe, the outputs against the host permutation,
+   stride 13) on the default path: (a) at --bn, each stage under
+   ``utils.profiling.Timer``, phase 5's proof vector, its peak memory
+   beside phase 5's; (b) at --bn + 3 (2^25 hashes at the default, whose
+   resident witness would need 101 GB), through the entry's single mode:
+   inputs on the card, witness, prove, verify (cold and hot), a tamper
+   probe, the outputs against the host permutation,
    hashes/s, peak memory, the launch counts (``mimc_witness`` once per span
    and again per span but the last); (c) ``profile_trace`` around a
    bn = 12 walk: the Chrome trace holds kernel events of the port's
@@ -126,7 +139,7 @@ its evals run, mul_scalar (which builds single-claim eq tables below
 hashers' S-box) and cipher_layer (the generic witness's cipher layers;
 the MiMC walk runs its tails, gate included, in tail_rounds) from phase
 8, and the six probes from phase 9's run of the scripts' counterparts.
-Phases 10-13 log their counts on lines of their own, not in the kernels
+Phases 10-14 log their counts on lines of their own, not in the kernels
 line.
 
 Prints one JSON line of per-kernel results, then the nvidia-smi line, then
@@ -158,9 +171,8 @@ sys.path.insert(0, str(ROOT))
 from gkr_mimc_tpu_torch.circuits.circuit import assign  # noqa: E402
 from gkr_mimc_tpu_torch.fields import fr  # noqa: E402
 from gkr_mimc_tpu_torch.fields.bn254 import L, P  # noqa: E402
-from gkr_mimc_tpu_torch import native  # noqa: E402
+from gkr_mimc_tpu_torch import bench, bench_pipeline, native  # noqa: E402
 from gkr_mimc_tpu_torch.gadget import GadgetVerifyError, GkrGadget, proof_from_vec, proof_size, verify_gadget  # noqa: E402
-from gkr_mimc_tpu_torch.gadget import GadgetCircuit  # noqa: E402
 from gkr_mimc_tpu_torch.gadget import bn254_g1 as g1  # noqa: E402
 from gkr_mimc_tpu_torch.gadget import gadget as gadget_mod  # noqa: E402
 from gkr_mimc_tpu_torch.gadget import groth16 as groth16_mod  # noqa: E402
@@ -178,7 +190,6 @@ from gkr_mimc_tpu_torch.models.mimc import assign_fused, mimc_circuit  # noqa: E
 from gkr_mimc_tpu_torch.ops import build  # noqa: E402
 from gkr_mimc_tpu_torch.ops import kernels as K  # noqa: E402
 from gkr_mimc_tpu_torch.ops import probes as Pr  # noqa: E402
-from gkr_mimc_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from gkr_mimc_tpu_torch.parallel import multihost  # noqa: E402
 from gkr_mimc_tpu_torch.sumcheck import prover as sumcheck_prover  # noqa: E402
 from gkr_mimc_tpu_torch.sumcheck import testing  # noqa: E402
@@ -783,43 +794,19 @@ def phase_golden(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def walk_inputs(bn: int, dev):
-    """The main path's inputs on the card: block = state = the generator's
-    stream at 0, qprime = random_fr_array(bn)."""
-    block = fr.to_mont(random_fr_device(1 << bn, 0, dev))
-    return block, block.clone(), ints_to_rows(random_fr_array(bn), dev)
-
-
-def walk(bn: int, dev):
-    """Inputs on the card -> witness -> proof; returns timings and artifacts."""
-    c = mimc_circuit()
-    sync()
-    t0 = time.perf_counter()
-    block, state, qprime = walk_inputs(bn, dev)
-    sync()
-    t1 = time.perf_counter()
-    a = assign_fused(block, state)
-    sync()
-    t2 = time.perf_counter()
-    proof = gkr_prover.prove(c, a, qprime)
-    sync()
-    t3 = time.perf_counter()
-    times = {"inputs_s": t1 - t0, "witness_s": t2 - t1, "prove_s": t3 - t2}
-    return c, block, state, qprime, a, proof, times
-
-
 def phase_cross_check(bn: int, dev) -> None:
-    c, *_, proof, t_k = walk(bn, dev)
-    vec_kernel = proof_to_vec(c, proof)
-    del proof
+    """The entry's single mode at bn through the kernels and again through
+    the plain twins: identical proof vectors."""
+    kernel = bench.single(bn, dev, ckpt=False, verify=False, warmup=False)
+    vec_kernel, t_k = proof_to_vec(kernel.circuit, kernel.proof), kernel.times
+    del kernel
     with plain_twins():
-        c, *_, proof, t_p = walk(bn, dev)
-    vec_plain = proof_to_vec(c, proof)
-    if vec_kernel != vec_plain:
+        plain = bench.single(bn, dev, ckpt=False, verify=False, warmup=False)
+    if proof_to_vec(plain.circuit, plain.proof) != vec_kernel:
         raise AssertionError(f"bn={bn}: kernel and plain walks differ")
     log(f"# cross-check bn={bn}: kernel and plain walks give identical proof vectors "
         f"({len(vec_kernel)} elements); prove {t_k['prove_s']:.2f} s kernels vs "
-        f"{t_p['prove_s']:.2f} s plain")
+        f"{plain.times['prove_s']:.2f} s plain")
 
 
 def grouped_walk(bn: int, g: int, dev, tail_bits: int = sumcheck_prover.TAIL_BITS):
@@ -891,7 +878,7 @@ def phase_round_paths_small(bn: int, gbn: int, g: int, dev, tail_bits: int = 2) 
     path's single walk (with its verification) and, under "<path> G",
     of each path's grouped prove."""
     c = mimc_circuit()
-    block, state, qprime = walk_inputs(bn, dev)
+    block, state, qprime = bench.main_inputs(bn, dev)
     a = assign_fused(block, state)
     want = proof_to_vec(c, gkr_prover.prove(c, a, qprime, tail_bits))
     launches = {}
@@ -928,11 +915,22 @@ def phase_round_paths_small(bn: int, gbn: int, g: int, dev, tail_bits: int = 2) 
     return launches
 
 
+def output_samples(n: int) -> list:
+    """The instances of an output table that check_outputs reads."""
+    return [0, 1, n // 3, n - 1]
+
+
 def check_outputs(out: torch.Tensor, block_off: int, state_off: int, n: int, what: str) -> None:
     """A few instances of an (8, n) output table against the host MiMC
     permutation of the generator's block and state streams."""
-    idx = [0, 1, n // 3, n - 1]
-    got = fr.to_ints(out[:, idx].contiguous())
+    idx = output_samples(n)
+    check_columns(out[:, idx], idx, block_off, state_off, what)
+
+
+def check_columns(cols: torch.Tensor, idx: list, block_off: int, state_off: int, what: str) -> None:
+    """Columns idx of an output table, (8, len(idx)), against the host MiMC
+    permutation of the generator's block and state streams."""
+    got = fr.to_ints(cols.contiguous())
 
     def stream(i):
         return fr.limb_values(random_fr_device(1, i, "cpu"))[0]
@@ -942,14 +940,14 @@ def check_outputs(out: torch.Tensor, block_off: int, state_off: int, n: int, wha
         raise AssertionError(f"{what}: output table disagrees with the host MiMC permutation")
 
 
-def tamper_probe(c, proof, block, state, a, qprime, what: str) -> None:
+def tamper_probe(c, proof, block, state, out, qprime, what: str) -> None:
     """One flipped coefficient bit must be rejected."""
     good = proof.sumcheck_proofs[50].coeffs
     bad = good.clone()
     bad[0, 0, 0] ^= 1
     proof.sumcheck_proofs[50].coeffs = bad
     try:
-        gkr_verifier.verify(c, proof, [block, state], a[93], qprime)
+        gkr_verifier.verify(c, proof, [block, state], out, qprime)
     except gkr_verifier.GKRError as e:
         log(f"# {what} tamper probe rejected: {e}")
     else:
@@ -989,28 +987,27 @@ def report_launches(launches: dict, expected: dict, what: str) -> None:
 
 
 def phase_main(bn: int, dev, card: str) -> dict:
-    """Returns the walk's inputs, witness, times, proof vector and launch
-    counts for phase 7."""
+    """Phase 5 through the entry's single mode (resident witness, no
+    warm-up: phase 4 ran the kernels; verified cold and hot). Returns the
+    walk's inputs, witness, times, proof vector and launch counts for
+    phase 7."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    c, block, state, qprime, a, proof, times = walk(bn, dev)
-    t0 = time.perf_counter()
-    gkr_verifier.verify(c, proof, [block, state], a[93], qprime)
-    sync()
-    times["verify_s"] = time.perf_counter() - t0
+    run = bench.single(bn, dev, ckpt=False, warmup=False)
     launches = dict(K.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    c, block, state, qprime, a, proof, times = (run.circuit, run.block, run.state, run.qprime, run.witness,
+                                                run.proof, run.times)
 
     require_launched(launches, PATH_KERNELS["gruen"], "the main path")
     check_outputs(a[93], 0, 0, 1 << bn, "main path")  # block = state = the stream at 0
-    tamper_probe(c, proof, block, state, a, qprime, "main path")
+    tamper_probe(c, proof, block, state, a[93], qprime, "main path")
 
-    n = 1 << bn
-    hps = n / (times["witness_s"] + times["prove_s"])
     log(f"# main path bn={bn} on {card}: inputs {times['inputs_s']:.3f} s, witness "
-        f"{times['witness_s']:.3f} s, prove {times['prove_s']:.3f} s, verify {times['verify_s']:.3f} s, "
-        f"{hps:,.0f} hashes proven/s (witness + prove), peak memory {peak_gb:.2f} GB")
+        f"{times['witness_s']:.3f} s, prove {times['prove_s']:.3f} s, verify {times['verify_cold_s']:.3f} s "
+        f"(hot {times['verify_hot_s']:.3f} s), {run.hps:,.0f} hashes proven/s (witness + prove), peak memory "
+        f"{peak_gb:.2f} GB; the entry's line {json.dumps(run.record())}")
     report_launches(launches, expected_launches(bn, "gruen"), "the main path")
     main = {"c": c, "block": block, "state": state, "qprime": qprime, "a": a, "times": times,
             "vec": proof_to_vec(c, proof), "launches": launches, "peak_gb": peak_gb}
@@ -1043,7 +1040,7 @@ def phase_round_paths_main(bn: int, main: dict, dev, card: str) -> dict:
         require_launched(launches[rounds], PATH_KERNELS[rounds], f"the {rounds} path")
         if proof_to_vec(c, proof) != main["vec"]:
             raise AssertionError(f"bn={bn}: the {rounds} proof vector differs from the main path's")
-        tamper_probe(c, proof, block, state, a, qprime, f"{rounds} path")
+        tamper_probe(c, proof, block, state, a[93], qprime, f"{rounds} path")
         del proof
         hps = n / (main["times"]["witness_s"] + prove_s)
         log(f"# round path {rounds} bn={bn} on {card}: proof vector equal to the main path's; prove {prove_s:.3f} s, "
@@ -1054,14 +1051,14 @@ def phase_round_paths_main(bn: int, main: dict, dev, card: str) -> dict:
 
 
 def phase_grouped(bn: int, g: int, dev, card: str) -> dict:
+    """Phase 6 through the entry's grouped mode (the resident witness, no
+    warm-up), verify_grouped inside it."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    c, block, state, qprime, a, proof, times = grouped_walk(bn, g, dev)
-    t0 = time.perf_counter()
-    gkr_verifier.verify_grouped(c, proof, [block, state], a[93], qprime)
-    sync()
-    times["verify_s"] = time.perf_counter() - t0
+    run = bench.grouped(bn, g, dev, ckpt=False, warmup=False)
+    c, block, state, qprime, a, proof, times = (run.circuit, run.block, run.state, run.qprime, run.witness,
+                                                run.proof, run.times)
     launches = dict(K.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1085,12 +1082,67 @@ def phase_grouped(bn: int, g: int, dev, card: str) -> dict:
         raise AssertionError("a tampered grouped proof was accepted")
     proof.sumcheck_proofs[50].coeffs = good
 
-    hps = g * n / (times["witness_s"] + times["prove_s"])
     log(f"# grouped path G={g} x bn={bn} on {card}: inputs {times['inputs_s']:.3f} s, witness "
         f"{times['witness_s']:.3f} s, prove {times['prove_s']:.3f} s, verify {times['verify_s']:.3f} s, "
-        f"{hps:,.0f} hashes proven/s (witness + prove), peak memory {peak_gb:.2f} GB")
+        f"{run.hps:,.0f} hashes proven/s (witness + prove), peak memory {peak_gb:.2f} GB; the entry's line "
+        f"{json.dumps(run.record())}")
     log(f"# launches on the grouped path: {json.dumps(launches)}")
     return launches
+
+
+def chunk_stages(run, cbn: int, chunks: int, dev) -> dict:
+    """Chunk 1 of the chunked run again, alone, with its circuit and
+    qprime, each stage synchronised: seconds of inputs, witness, prove
+    and verify. chunks x their sum is the serial loop's time, to set
+    beside the chunked mode's."""
+    c, qprime, t = run.circuit, run.qprime, {}
+
+    def stage(key, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        t[key] = time.perf_counter() - t0
+        return out
+
+    block, state = stage("inputs", lambda: bench.chunk_inputs(1, chunks, cbn, dev))
+    a = stage("witness", lambda: assign_fused(block, state))
+    proof = stage("prove", lambda: gkr_prover.prove(c, a, qprime))
+    stage("verify", lambda: gkr_verifier.verify(c, proof, [block, state], a[93], qprime))
+    return t
+
+
+def phase_chunked(total: int, cbn: int, dev, card: str) -> dict:
+    """Phase 14: the entry's chunked mode at T = total in chunks of 2^cbn
+    (four verified 2^20 chunks at the default --bn), each chunk's outputs
+    against the host permutation at sampled instances, its peak memory
+    (one witness at a time) and its loop beside one chunk's serial time x
+    the chunks; then the entry's layer report at T."""
+    chunks, n = 1 << (total - cbn), 1 << cbn
+    idx = output_samples(n)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    run = bench.chunked(cbn, total, dev, sample=idx)
+    launches = dict(K.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if run.verified != chunks or len(run.outputs) != chunks:
+        raise AssertionError(f"chunked: {run.verified} of {chunks} chunks verified")
+    for b, st, cols in run.outputs:
+        check_columns(cols, idx, b, st, f"chunk at {b}")
+    witness_gb = RESIDENT_TABLES * n * FE / 1e9
+    stages = chunk_stages(run, cbn, chunks, dev)
+    serial = chunks * sum(stages.values())
+    t = run.times
+    log(f"# chunked 2^{total} = {chunks} x 2^{cbn} on {card}: every chunk verified, outputs equal the host "
+        f"permutation; loop {t['loop_s']:.3f} s, {run.hps:,.0f} hashes proven/s; one chunk alone, stage by stage "
+        f"({', '.join(f'{k} {v:.3f} s' for k, v in stages.items())}) x {chunks} = {serial:.3f} s "
+        f"({run.hashes / serial:,.0f} hashes/s); peak memory "
+        f"{peak_gb:.2f} GB (one chunk's witness {witness_gb:.2f} GB); the entry's line {json.dumps(run.record())}")
+    log(f"# launches in phase 14 (chunk 0 in the warm-up, then every chunk once): "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    return {"times": t, "hps": run.hps, "serial_s": serial, "peak_gb": peak_gb, "launches": launches,
+            "layer": bench.layer_report(total, dev)}
 
 
 # ---------------------------------------------------------------------------
@@ -1116,7 +1168,7 @@ def circuit_setup(kind: str, bn: int, dev):
     """(circuit, inputs, qprime, output oracle of instance i) of GMiMC T2
     ("gmimc"), Poseidon T2 ("poseidon") or Poseidon (2, 2, 3) ("poseidon
     small") at 2^bn instances: block word k is the generator's stream at
-    offset k * 2^bn, state word k at (t + k) * 2^bn (as walk_inputs, one
+    offset k * 2^bn, state word k at (t + k) * 2^bn (as grouped_inputs, one
     offset per word); qprime is random_fr_array(bn)."""
     n = 1 << bn
     t = 2
@@ -1652,14 +1704,24 @@ PIPELINE_STAGES = ((incircuit_mod.GadgetCircuit, "solve", "solve", False),
 @contextmanager
 def pipeline_stage_timer(times: dict, calls: dict):
     """Seconds of each stage in PIPELINE_STAGES, under the label of the
-    stage that called it ("compile: hash hint", "solve: GKR prove", ...;
+    pipeline stage it ran in (the context manager this yields, which
+    ``bench_pipeline.run`` enters around each of its stages) or of the
+    solve that called it ("compile: hash hint", "solve: GKR prove", ...;
     the computeH and MSM calls of groth16.prove overlap on threads, each
     timed from its own start to its own end). A card stage synchronises
     before and after. ``calls`` keeps the last arguments and result of
     each card stage."""
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _, _ in PIPELINE_STAGES]
-    outer = ["compile"]
+    outer = ["pipeline"]
     lock = threading.Lock()
+
+    @contextmanager
+    def stage(label):
+        outer.append(label)
+        try:
+            yield
+        finally:
+            outer.pop()
 
     def timed(fn, label, card):
         def run(*args, **kwargs):
@@ -1686,7 +1748,7 @@ def pipeline_stage_timer(times: dict, calls: dict):
     for (owner, attr, label, card), (_, _, fn) in zip(PIPELINE_STAGES, saved):
         setattr(owner, attr, timed(fn, label, card))
     try:
-        yield outer
+        yield stage
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
@@ -1720,50 +1782,33 @@ def pipeline_tamper_probes(proof, vk, public_values) -> None:
 
 
 def phase_pipeline(bn: int, dev, card: str) -> dict:
-    """Phase 11: GadgetCircuit over 2^bn messages hashed by one
-    update_hasher_batch (the hints on the card), compile, setup(seed),
-    prove(seed), groth16.verify, each stage timed; three tamper probes;
-    the solve trace's GKR inputs proven again through the plain twins (the
+    """Phase 11 through the pipeline entry (``bench_pipeline.run``):
+    GadgetCircuit over 2^bn messages hashed by one update_hasher_batch
+    (the hints on the card), compile, setup(seed), prove, groth16.verify,
+    each stage timed and the calls inside them; three tamper probes; the
+    solve trace's GKR inputs proven again through the plain twins (the
     same proof vector); the run's launch counts against the expected ones.
     Returns the stage seconds, the R1CS sizes and the launch counts."""
     if not native.available():
         raise AssertionError("phase 11: the native host runtime (native/bn254.cpp) did not build")
     n = 1 << bn
-    msgs = random_fr_array(n)
-
-    def define(cs, gadget):
-        states = [cs.witness(0) for _ in range(n)]
-        gadget.update_hasher_batch(cs, states, [cs.witness(m) for m in msgs])
-
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     times: dict = {}
     calls: dict = {}
-    with pipeline_stage_timer(times, calls) as outer:
-        t0 = time.perf_counter()
-        circ = GadgetCircuit(define, device=dev)
-        compiled = circ.compile()
-        times["compile"] = time.perf_counter() - t0
-        r1cs = compiled.r1cs
-        sizes = {"constraints": len(r1cs.constraints), "wires": r1cs.n_wires, "public": r1cs.n_public,
-                 "bn": compiled.bn, "partition (pub gkr, priv gkr, pub not gkr, priv not gkr)":
-                 [len(p) for p in compiled.partition]}
-        log(f"# pipeline bN={bn}: R1CS {json.dumps(sizes)}")
-        if compiled.bn != bn:
-            raise AssertionError(f"pipeline: compiled bN {compiled.bn}, expected {bn}")
-        outer[-1] = "setup"
-        t0 = time.perf_counter()
-        pk, vk = incircuit_mod.setup(compiled, seed=b"chip-smoke-pipeline")
-        times["setup"] = time.perf_counter() - t0
-        outer[-1] = "groth16.prove"
-        t0 = time.perf_counter()
-        proof, public_values = circ.prove(compiled, pk, vk, seed=b"chip-smoke-prove")
-        times["prove (solve and groth16.prove)"] = time.perf_counter() - t0
-        outer[-1] = "verify"
-        t0 = time.perf_counter()
-        groth16_mod.verify(proof, vk, public_values)
-        times["verify"] = time.perf_counter() - t0
+    with pipeline_stage_timer(times, calls) as stage:
+        out = bench_pipeline.run(bn, dev, stage)
+    record, compiled, proof, vk, public_values = (out[k] for k in ("record", "compiled", "proof", "vk",
+                                                                   "public_values"))
+    times.update({k[:-2]: record[k] for k in ("compile_s", "setup_s", "prove_s", "verify_s")})
+    r1cs = compiled.r1cs
+    sizes = {"constraints": len(r1cs.constraints), "wires": r1cs.n_wires, "public": r1cs.n_public,
+             "bn": compiled.bn, "partition (pub gkr, priv gkr, pub not gkr, priv not gkr)":
+             [len(p) for p in compiled.partition]}
+    log(f"# pipeline bN={bn}: R1CS {json.dumps(sizes)}; the entry's record {json.dumps(record)}")
+    if compiled.bn != bn:
+        raise AssertionError(f"pipeline: compiled bN {compiled.bn}, expected {bn}")
     launches = dict(K.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if proof.initial_randomness != public_values[0] or proof.initial_randomness == 0:
@@ -1818,44 +1863,27 @@ def expected_sharded_launches(bn: int, world: int, verified: bool) -> dict:
 
 
 def phase_sharded_single(bn: int, want_vec: list, dev, card: str) -> dict:
-    """12a: world size 1 on nccl in this process: the rank's slab of the
-    inputs (the whole table), the witness, the sharded "coeff" walk (every
-    round local, then no gather), verified with the unsharded tables, a
-    tamper probe, phase 5's proof vector."""
-    c = mimc_circuit()
-    multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0, backend="nccl")
-    try:
-        m = multihost.make_global_mesh(backend="nccl")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        K.reset_launch_counts()
-        sync()
-        t0 = time.perf_counter()
-        block = multihost.shard_mimc_inputs_global(m, 1 << bn)
-        state = block.clone()
-        qprime = ints_to_rows(random_fr_array(bn), dev)
-        sync()
-        t1 = time.perf_counter()
-        a = pmesh.assign_sharded_mimc(block, state)
-        sync()
-        t2 = time.perf_counter()
-        proof = pmesh.prove_gkr_sharded(c, a, qprime, m)
-        sync()
-        t3 = time.perf_counter()
-        tables = [pmesh.unshard_table([t]) for t in (block, state, a[93])]
-        gkr_verifier.verify(c, proof, tables[:2], tables[2], qprime)
-        launches = dict(K.LAUNCHES)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        if proof_to_vec(c, proof) != want_vec:
-            raise AssertionError(f"bn={bn}: the sharded walk at world size 1 differs from phase 5's proof vector")
-        tamper_probe(c, proof, tables[0], tables[1], a, qprime, "sharded world size 1")
-        log(f"# sharded walk, world size 1 ({m.backend}, {m.device}) bn={bn} on {card}: phase 5's proof vector, "
-            f"verified; inputs {t1 - t0:.3f} s, witness {t2 - t1:.3f} s, prove {t3 - t2:.3f} s, "
-            f"{m.counts['all_reduce']} all-reduces, {m.counts['all_gather']} all-gathers, peak memory {peak_gb:.2f} GB")
-        report_launches(launches, expected_sharded_launches(bn, 1, True), "the sharded walk, world size 1")
-        return {"prove_s": t3 - t2, "launches": launches, "collectives": dict(m.counts), "peak_gb": peak_gb}
-    finally:
-        torch.distributed.destroy_process_group()
+    """12a through the entry's sharded mode: world size 1 on nccl in this
+    process (no warm-up), the rank's slab of the inputs (the whole
+    table), the witness, the sharded "coeff" walk (every round local,
+    then no gather), verified with the gathered tables; then a tamper
+    probe and phase 5's proof vector."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    run = bench.sharded(bn, dev, warmup=False)
+    launches = dict(K.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    c, proof, times, x = run.circuit, run.proof, run.times, run.extra
+    if proof_to_vec(c, proof) != want_vec:
+        raise AssertionError(f"bn={bn}: the sharded walk at world size 1 differs from phase 5's proof vector")
+    tamper_probe(c, proof, run.block, run.state, x["output"], run.qprime, "sharded world size 1")
+    log(f"# sharded walk, world size 1 ({x['backend']}, {x['device']}) bn={bn} on {card}: phase 5's proof vector, "
+        f"verified; inputs {times['inputs_s']:.3f} s, witness {times['witness_s']:.3f} s, prove "
+        f"{times['prove_s']:.3f} s, {x['collectives']['all_reduce']} all-reduces, {x['collectives']['all_gather']} "
+        f"all-gathers, peak memory {peak_gb:.2f} GB; the entry's line {json.dumps(run.record())}")
+    report_launches(launches, expected_sharded_launches(bn, 1, True), "the sharded walk, world size 1")
+    return {"prove_s": times["prove_s"], "launches": launches, "collectives": x["collectives"], "peak_gb": peak_gb}
 
 
 def phase_sharded_ranks(bn: int, want_vec: list, world: int = 2) -> dict:
@@ -1914,7 +1942,7 @@ def checkpointed_walk(bn: int, dev, card: str, what: str) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     with profiling.Timer(f"# {what}: inputs", out=sys.stdout) as t_in:
-        block, state, qprime = t_in.sync_on(walk_inputs(bn, dev))
+        block, state, qprime = t_in.sync_on(bench.main_inputs(bn, dev))
     with profiling.Timer(f"# {what}: checkpointed witness", out=sys.stdout) as t_wit:
         ck = CheckpointedAssignment(block, state)
         t_wit.sync_on(ck.output)
@@ -1928,39 +1956,42 @@ def checkpointed_walk(bn: int, dev, card: str, what: str) -> tuple:
 def phase_checkpoint(bn: int, want_vec: list, main_peak_gb: float, dev, card: str) -> dict:
     """Phase 13: (a) the checkpointed witness at --bn gives phase 5's proof
     vector; (b) 2^(bn+3) hashes, more than a resident witness fits on the
-    card, proven, verified, a tamper probe, the outputs at sampled
-    instances; (c) profile_trace around a bn = 12 walk."""
+    card, through the entry's single mode: proven, verified, a tamper
+    probe, the outputs at sampled instances; (c) profile_trace around a
+    bn = 12 walk."""
     c, block, state, qprime, ck, proof, times, peak_a = checkpointed_walk(bn, dev, card, f"13a bn={bn}")
     if proof_to_vec(c, proof) != want_vec:
         raise AssertionError(f"bn={bn}: the checkpointed walk differs from phase 5's proof vector")
-    n_spans = ck.n_spans
     log(f"# checkpointed walk bn={bn} on {card}: phase 5's proof vector; witness {times['witness_s']:.3f} s, prove "
         f"{times['prove_s']:.3f} s, peak memory {peak_a:.2f} GB (phase 5, resident: {main_peak_gb:.2f} GB)")
     del c, block, state, qprime, ck, proof
 
     big = bn + 3
     resident_gb = RESIDENT_TABLES * (1 << big) * FE / 1e9
-    c, block, state, qprime, ck, proof, times_b, peak_b = checkpointed_walk(big, dev, card, f"13b bn={big}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    run = bench.single(big, dev, ckpt=True, warmup=False)  # through the entry's single mode, verified twice
     launches = dict(K.LAUNCHES)
-    t0 = time.perf_counter()
-    gkr_verifier.verify(c, proof, [block, state], ck[93], qprime)
-    sync()
-    verify_s = time.perf_counter() - t0
+    peak_b = torch.cuda.max_memory_allocated() / 1e9
+    c, block, state, qprime, ck, proof, times_b = (run.circuit, run.block, run.state, run.qprime, run.witness,
+                                                   run.proof, run.times)
     check_outputs(ck[93], 0, 0, 1 << big, f"checkpointed bn={big}")
-    tamper_probe(c, proof, block, state, ck, qprime, f"checkpointed bn={big}")
+    tamper_probe(c, proof, block, state, ck[93], qprime, f"checkpointed bn={big}")
     # every span made twice (the forward pass, the walk's read), the last once
-    report_launches(launches, dict(expected_launches(big, "gruen"), mimc_witness=2 * n_spans - 1),
+    report_launches(launches, dict(expected_launches(big, "gruen"), mimc_witness=2 * ck.n_spans - 1),
                     f"the checkpointed walk at bn={big}")
-    hps = (1 << big) / (times_b["witness_s"] + times_b["prove_s"])
+    hps = run.hps
     log(f"# checkpointed walk bn={big} ({1 << big:,} hashes) on {card}: verified, tamper rejected, outputs equal "
         f"the host permutation; inputs {times_b['inputs_s']:.3f} s, witness {times_b['witness_s']:.3f} s, prove "
-        f"{times_b['prove_s']:.3f} s, verify {verify_s:.3f} s, {hps:,.0f} hashes proven/s (witness + prove), "
-        f"peak memory {peak_b:.2f} GB; a resident witness at this bn needs {RESIDENT_TABLES} x 2^{big} x {FE} B = "
-        f"{resident_gb:.1f} GB, more than the card's 80 GB, so no resident run compares")
-    del c, block, state, qprime, ck, proof
+        f"{times_b['prove_s']:.3f} s, verify {times_b['verify_cold_s']:.3f} s (hot {times_b['verify_hot_s']:.3f} s), "
+        f"{hps:,.0f} hashes proven/s (witness + prove), peak memory {peak_b:.2f} GB; a resident witness at this bn "
+        f"needs {RESIDENT_TABLES} x 2^{big} x {FE} B = {resident_gb:.1f} GB, more than the card's 80 GB, so no "
+        f"resident run compares; the entry's line {json.dumps(run.record())}")
+    del c, block, state, qprime, ck, proof, run
 
     trace = phase_profile_trace(12, dev)
-    return {"a": {**times, "peak_gb": peak_a}, "b": {**times_b, "verify_s": verify_s, "peak_gb": peak_b,
+    return {"a": {**times, "peak_gb": peak_a}, "b": {**times_b, "peak_gb": peak_b,
                                                      "hps": hps, "launches": launches}, "c": trace}
 
 
@@ -1976,7 +2007,7 @@ def phase_profile_trace(bn: int, dev) -> dict:
     c = mimc_circuit()
     K.reset_launch_counts()
     with profiling.profile_trace("chip_smoke_13c", root=str(ROOT / "profiling")) as path:
-        block, state, qprime = walk_inputs(bn, dev)
+        block, state, qprime = bench.main_inputs(bn, dev)
         gkr_prover.prove(c, assign_fused(block, state), qprime)
     launched = sum(K.LAUNCHES.values())
     with open(path) as f:
@@ -2054,6 +2085,8 @@ def main() -> int:
     del main_vec
     phase_grouped(bn - 2, GROUPS, dev, card)  # 6.
     done("6")
+    phase_chunked(bn, bn - 2, dev, card)  # 14.
+    done("14")
     # 8. Poseidon's 397 layers at bn - 8: their tail rounds cost the same at every bn
     circuits = phase_circuits(bn - 2, bn - 8, dev, card)
     done("8")

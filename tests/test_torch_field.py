@@ -101,12 +101,15 @@ def test_entry_points_default_to_the_card():
 
 
 def test_package_imports_without_jax():
-    """Every module of the port imports with jax made unimportable."""
+    """Every module of the port, its entry points and chip_smoke.py import
+    with jax made unimportable."""
     root = Path(__file__).resolve().parent.parent
     mods = sorted(
         ".".join(p.relative_to(root).with_suffix("").parts)
         for p in (root / "gkr_mimc_tpu_torch").rglob("*.py")
     )
+    assert {"gkr_mimc_tpu_torch.bench", "gkr_mimc_tpu_torch.bench_pipeline"} <= set(mods)  # the entry points
+    mods.append("chip_smoke")
     script = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
